@@ -1,0 +1,26 @@
+"""Host↔device helpers shared by the encoder and decoder."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None picks CUDA when a card is present,
+    else the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy a host array to `device`: through pinned memory and without
+    blocking on CUDA, as a zero-copy view on the CPU."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # e.g. np.frombuffer over file bytes
+        a = a.copy()
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -1,0 +1,249 @@
+"""GLC encoder: upload → device MDCT/mask/quantize per segment → container.
+
+Port of ``glc_tpu/codec/encoder.py`` (single track).  API mirrors the
+reference (reference src/codec.rs:396-566):
+
+    enc = Encoder(sample_rate, device="cuda")
+    encoded = enc.encode(samples, channels)     # interleaved float32
+    encoded = enc.encode_pcm16(i16, channels)   # exact fast path for 16-bit
+                                                # sources (i16/2^15 == f32)
+
+The host uploads the interleaved signal once per file, from pinned memory;
+the deinterleave, padding and framing happen on the device.  Each segment
+of the plan (`upload_geometry`) is one batch of frames, and its download
+is the per-frame stats, exactly the kept pairs, and the raw rows of the
+frames that chose the raw-PCM fallback.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import CodecConfig, DEFAULT_CONFIG
+from ..container.schema import (
+    PAIR_DTYPE,
+    AudioHeader,
+    EncodedAudio,
+    FrameSet,
+    GaplessInfo,
+)
+from ..ops.encode import encode_segment, planarize
+from .device import resolve_device, upload
+from .tables import get_codec_tables, len_bucket
+
+
+def frame_signal(samples: np.ndarray, channels: int, cfg: CodecConfig,
+                 dtype=np.float32):
+    """Deinterleave + pad on the host, mirroring reference
+    src/codec.rs:427-455 (copied from the JAX package; the encoder does
+    this on the device with `planarize`, and the tests hold the two equal).
+
+    Returns (padded [C, P], num_frames, padding, per_channel_len).
+    Padding: hop/2 leading zeros, pad to hop multiple, hop/2 trailing zeros.
+    """
+    hop, frame = cfg.hop_size, cfg.frame_size
+    samples = np.asarray(samples, dtype)
+    if channels <= 0:
+        raise ValueError("channels must be >= 1")
+    lead = hop // 2
+
+    def padded_len(t: int) -> int:
+        rem = (lead + t) % hop
+        return lead + t + ((hop - rem) if rem else 0) + lead
+
+    # The reference deinterleaves by i % ch (codec.rs:427-431), so a ragged
+    # interleaved count is accepted: early channels get one extra sample.
+    # Frame count comes from channel 0's padded length (codec.rs:449-455);
+    # if a shorter channel pads to a smaller length the reference's frame
+    # slicing would panic — we reject that input explicitly.
+    T = (len(samples) + channels - 1) // channels  # channel-0 length
+    P = padded_len(T)
+    padded = np.zeros((channels, P), dtype)
+    if len(samples) % channels == 0:
+        padded[:, lead : lead + T] = samples.reshape(T, channels).T
+    else:
+        for c in range(channels):
+            ch_data = samples[c::channels]
+            if padded_len(len(ch_data)) < P:
+                raise ValueError(
+                    "ragged interleaved input where channel lengths pad to "
+                    "different sizes (the reference panics on this input)"
+                )
+            padded[c, lead : lead + len(ch_data)] = ch_data
+
+    num_frames = 1 if P < frame else (P - frame) // hop + 1
+    padding = P - T - lead  # codec.rs:546
+    return padded, num_frames, padding, T
+
+
+def frame_plan(total_samples: int, channels: int, cfg: CodecConfig):
+    """Pure-arithmetic twin of `frame_signal`: (T, F, padding) without
+    building any array.
+
+    T is the channel-0 length (the reference deinterleaves by i % ch,
+    codec.rs:427-431, so ragged inputs give early channels one extra
+    sample); F and padding come from channel 0 exactly as in
+    codec.rs:449-455 and :546.  Raises for the ragged inputs the
+    reference's frame slicing panics on.
+    """
+    hop, frame = cfg.hop_size, cfg.frame_size
+    if channels <= 0:
+        raise ValueError("channels must be >= 1")
+    lead = hop // 2
+
+    def padded_len(t: int) -> int:
+        rem = (lead + t) % hop
+        return lead + t + ((hop - rem) if rem else 0) + lead
+
+    T = (total_samples + channels - 1) // channels
+    P = padded_len(T)
+    if total_samples % channels and padded_len(T - 1) < P:
+        raise ValueError(
+            "ragged interleaved input where channel lengths pad to "
+            "different sizes (the reference panics on this input)"
+        )
+    F = 1 if P < frame else (P - frame) // hop + 1
+    padding = P - T - lead
+    return T, F, padding
+
+
+def upload_geometry(total_samples: int, channels: int, cfg: CodecConfig):
+    """The segment geometry of one track: (T, F, padding, plan, need_hops).
+
+    * plan — [(start_hop, k_frames)]: full segments of K = ladder(F) capped
+      at encode_chunk_frames, plus one ladder-bucketed tail segment for the
+      remainder (the JAX package's plan, unchanged).
+    * need_hops — the planar signal's length in hops on the device.
+
+    The JAX version also returns an upload length bucketed for its compile
+    cache; the port uploads the samples as they are.
+    """
+    hop = cfg.hop_size
+    lead = hop // 2
+    T, F, padding = frame_plan(total_samples, channels, cfg)
+    K = min(max(len_bucket(F), 16), cfg.encode_chunk_frames)
+    plan = [(i * K, K) for i in range(F // K)]  # (start, k_frames)
+    rem = F - (F // K) * K  # F >= 1, so rem > 0 whenever plan is empty
+    if rem:
+        plan.append(((F // K) * K, min(len_bucket(rem), K)))
+    last_start, last_k = plan[-1]
+    p_hops = (lead + T + hop - 1) // hop + 1   # hops covering lead+T+lead
+    need_hops = max(last_start + last_k + 1, p_hops)
+    return T, F, padding, plan, need_hops
+
+
+def pairs_from_words(words: np.ndarray) -> np.ndarray:
+    """int32 words (k << 16) | (q & 0xFFFF) → PAIR_DTYPE pairs."""
+    pairs = np.empty(len(words), PAIR_DTYPE)
+    pairs["k"] = (words >> 16).astype(np.uint16)
+    pairs["q"] = (words & 0xFFFF).astype(np.uint16).view(np.int16)
+    return pairs
+
+
+class Encoder:
+    """reference src/codec.rs:396-418.
+
+    Stateless: all state is the immutable tables, so `encode` is a pure
+    function of its inputs.  `device` is where the math runs ("cuda",
+    "cpu", a torch.device; None picks CUDA when present).
+    """
+
+    def __init__(self, sample_rate: int, config: Optional[CodecConfig] = None,
+                 device=None):
+        self.sample_rate = int(sample_rate)
+        self.config = config or DEFAULT_CONFIG
+        self.device = resolve_device(device)
+        self.tables = get_codec_tables(
+            self.config.n, self.config.frame_size, self.sample_rate,
+            self.device,
+        )
+
+    def encode(self, samples: np.ndarray, channels: int) -> EncodedAudio:
+        """Encode interleaved float32 PCM (codec.rs:421-565)."""
+        samples = np.asarray(samples)
+        if np.issubdtype(samples.dtype, np.integer):
+            raise TypeError(
+                "encode() expects float PCM in [-1, 1]; for 16-bit integer "
+                "sources use encode_pcm16() (exact, half the upload)"
+            )
+        return self._encode(samples.astype(np.float32, copy=False),
+                            channels, pcm16=False)
+
+    def encode_pcm16(self, samples_i16: np.ndarray,
+                     channels: int) -> EncodedAudio:
+        """Exact fast path for 16-bit integer sources: the same container
+        as `encode(samples_i16 / 32768.0, ch)`, with the division on the
+        device (exact in f32) after a half-size upload."""
+        return self._encode(np.asarray(samples_i16, np.int16), channels,
+                            pcm16=True)
+
+    def _encode(self, samples: np.ndarray, channels: int, *,
+                pcm16: bool) -> EncodedAudio:
+        cfg = self.config
+        hop, frame_size, n = cfg.hop_size, cfg.frame_size, cfg.n
+        C = int(channels)
+        total_samples = len(samples)
+        if total_samples == 0:
+            raise ValueError("cannot encode empty input")
+        lead = hop // 2
+
+        T, F, padding, plan, need_hops = upload_geometry(
+            total_samples, C, cfg
+        )
+        if T * C != total_samples:
+            # ragged input: zero-complete the last sample row, which
+            # reproduces the reference's modulo deinterleave
+            xup = np.zeros(T * C, samples.dtype)
+            xup[:total_samples] = samples
+        else:
+            xup = samples
+        xfull = planarize(upload(xup, self.device), C, lead, n, need_hops)
+        if pcm16:
+            xfull = xfull.to(torch.float32) / 32768.0  # exact: 2^15
+
+        nnz_all = np.empty((F, C), np.int64)
+        scales_all = np.empty((F, C), np.float32)
+        raw_mask_all = np.empty(F, bool)
+        pair_parts = []
+        raw_parts = []
+        for start, k in plan:
+            valid = min(k, F - start)
+            stats_d, words_d, raw_d = encode_segment(
+                xfull, start, valid, self.tables,
+                quality=cfg.quality_factor,
+                noise_floor_db=cfg.noise_floor_db,
+                compression_threshold=cfg.compression_threshold,
+                max_q=cfg.max_q,
+            )
+            stats = stats_d.cpu().numpy()  # waits for the segment
+            nnz_all[start : start + valid] = stats[:, :C]
+            scales_all[start : start + valid] = stats[:, C : 2 * C].view(
+                np.float32
+            )
+            raw_mask_all[start : start + valid] = stats[:, 2 * C] != 0
+            pair_parts.append(pairs_from_words(words_d.cpu().numpy()))
+            if raw_d.shape[0]:
+                # channel-major flatten — the reference's actual storage
+                # layout (codec.rs:471-503, quirk Q13)
+                raw_parts.append(raw_d.cpu().numpy().reshape(-1, C * frame_size))
+
+        pairs_all = np.concatenate(pair_parts)
+        raw_all = (
+            np.concatenate(raw_parts)
+            if raw_parts
+            else np.empty((0, C * frame_size), np.int16)
+        )
+        fs = FrameSet(nnz_all, pairs_all, scales_all, raw_mask_all, raw_all,
+                      frame_size)
+        return EncodedAudio(
+            header=AudioHeader(self.sample_rate, C, total_samples),
+            frame_set=fs,
+            gapless_info=GaplessInfo(
+                encoder_delay=hop // 2,
+                padding=padding,
+                original_length=total_samples,
+            ),
+        )

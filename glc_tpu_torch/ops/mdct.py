@@ -1,0 +1,80 @@
+"""MDCT/IMDCT as batched matmuls against a precomputed cosine table.
+
+Port of ``glc_tpu/ops/mdct.py``.  The tables are the same numpy code, so
+they are bit-identical to the JAX package's: cos/sin come from numpy's
+float64 evaluation of the f32 angle, never from the device.
+
+Table math matches the reference's f32 evaluation order bit-for-bit:
+  angle = (PI/n) * (i + 0.5 + n/2) * (k + 0.5)      (codec.rs:335, f32, left-assoc)
+  window = sin(PI * (i + 0.5) / 2N)                  (codec.rs:342-344)
+  norm   = sqrt(2/n)                                 (codec.rs:347)
+
+`mdct` / `imdct` are plain f32 ``torch.matmul`` products, the counterpart of
+the JAX package's ``Precision.HIGHEST`` einsums: the package turns TF32 off
+at import, so the product runs in full f32.  `imdct` is the plain version
+of the decode path's fused kernel (``ops/kernels.py``), which runs on CUDA.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class MdctTables:
+    """Precomputed tables (reference src/codec.rs:326-356)."""
+
+    cos_table: np.ndarray  # [n, frame_size] f32
+    window: np.ndarray     # [frame_size] f32
+    n: int                 # hop size / number of coefficients
+    norm: np.float32       # sqrt(2/n)
+
+    def __hash__(self):
+        return hash((self.n, self.cos_table.shape))
+
+
+@lru_cache(maxsize=8)
+def get_mdct_tables(n: int = 1024, frame_size: int = 2048) -> MdctTables:
+    pi = np.float32(np.pi)
+    nf = np.float32(n)
+    i = np.arange(frame_size, dtype=np.float32)
+    k = np.arange(n, dtype=np.float32)
+
+    # ((PI / n) * (i + 0.5 + n/2)) * (k + 0.5), all f32, matching Rust
+    # left-to-right association (codec.rs:335).
+    t1 = (pi / nf) * (i + np.float32(0.5) + nf / np.float32(2.0))  # [frame_size]
+    angle = t1[None, :] * (k[:, None] + np.float32(0.5))
+    cos_table = np.cos(angle.astype(np.float64)).astype(np.float32)
+
+    w_angle = (pi * (i + np.float32(0.5))) / np.float32(frame_size)
+    window = np.sin(w_angle.astype(np.float64)).astype(np.float32)
+
+    norm = np.sqrt(np.float32(2.0) / nf).astype(np.float32)
+    return MdctTables(cos_table=cos_table, window=window, n=n, norm=norm)
+
+
+def _rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x [..., k] @ table [k, m] as ONE 2-D product over all leading rows.
+
+    ``torch.matmul`` does not fold a non-contiguous [F, C, k] operand into
+    rows; it runs a batched product of F tiny [C, k] matrices instead,
+    which on an H100 took 29 ms for the 180 s stereo encode's MDCT where
+    the 2-D product takes about a millisecond (PERF.md)."""
+    out = torch.matmul(x.reshape(-1, x.shape[-1]), table)
+    return out.view(*x.shape[:-1], table.shape[-1])
+
+
+def mdct(blocks: torch.Tensor, cos_table: torch.Tensor, norm) -> torch.Tensor:
+    """Batched MDCT: [..., frame_size] -> [..., n] (codec.rs:358-374);
+    `norm` applied to the product exactly as the reference applies it to
+    each dot product."""
+    return _rows_matmul(blocks, cos_table.T) * norm
+
+
+def imdct(coeffs: torch.Tensor, cos_table: torch.Tensor, norm) -> torch.Tensor:
+    """Batched IMDCT: [..., n] -> [..., frame_size] (codec.rs:376-391)."""
+    return _rows_matmul(coeffs, cos_table) * norm

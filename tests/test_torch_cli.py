@@ -1,0 +1,87 @@
+"""The port's `glc` CLI (python -m glc_tpu_torch): a WAV → .glc → WAV round
+trip, the lines it prints beside the JAX package's CLI, and the refusal of
+what is not ported yet (FLAC export)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+import glc_tpu.cli as jax_cli
+import glc_tpu_torch.cli as torch_cli
+from glc_tpu_torch import Decoder, load_encoded
+from glc_tpu_torch.io.wav import read_wav_pcm16, write_wav_i16
+
+REPO = Path(__file__).resolve().parent.parent
+RATE = 44100
+
+
+def _pcm(seconds=0.5, channels=2):
+    t = np.arange(int(RATE * seconds)) / RATE
+    x = 0.4 * np.sin(2 * np.pi * 523.25 * t)
+    return (np.repeat(x, channels) * 32767).astype(np.int16)
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-m", "glc_tpu_torch", *args], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_wav_round_trip(tmp_path):
+    pcm = _pcm()
+    write_wav_i16(tmp_path / "tone.wav", pcm, RATE, 2)
+
+    enc = _run(["tone.wav"], tmp_path)
+    assert enc.returncode == 0, enc.stderr
+    assert "Saved: 'tone.glc'" in enc.stdout
+    (tmp_path / "tone.wav").rename(tmp_path / "orig.wav")
+
+    dec = _run(["-d", "tone.glc", "--wav"], tmp_path)
+    assert dec.returncode == 0, dec.stderr
+    assert f"Decoded {len(pcm)} samples" in dec.stdout
+    out, rate, channels = read_wav_pcm16(tmp_path / "tone.wav")
+    assert (rate, channels, len(out)) == (RATE, 2, len(pcm))
+    want = Decoder(2, RATE, device="cpu").decode_i16(
+        load_encoded(tmp_path / "tone.glc"))
+    assert np.array_equal(out, want)
+
+
+def test_flac_export_is_refused(tmp_path):
+    write_wav_i16(tmp_path / "a.wav", _pcm(0.1, 1), RATE, 1)
+    assert torch_cli.main([str(tmp_path / "a.wav")]) == 0
+    proc = _run(["-d", "a.glc"], tmp_path)
+    assert proc.returncode == 2
+    assert "FLAC export is not ported yet" in proc.stderr
+    assert not (tmp_path / "a.flac").exists()
+
+
+def test_prints_the_same_lines_as_the_jax_cli(tmp_path, capsys):
+    """Encode, then decode to WAV, with each package's CLI in this process
+    (the port on the CPU, as there is no card here): the same stdout line
+    for line."""
+    pcm = _pcm(0.3)
+    lines = {}
+    for name, cli in (("jax", jax_cli), ("torch", torch_cli)):
+        d = tmp_path / name
+        d.mkdir()
+        write_wav_i16(d / "song.wav", pcm, RATE, 2)
+        assert cli.main([str(d / "song.wav")]) == 0
+        (d / "song.wav").unlink()
+        assert cli.main(["-d", str(d / "song.glc"), "--wav"]) == 0
+        lines[name] = capsys.readouterr().out.splitlines()
+    assert lines["torch"] == lines["jax"]
+    assert len(lines["torch"]) == 7
+
+
+def test_usage_errors_match(tmp_path, capsys):
+    for args in (["-d"], ["-d", "missing.glc", "--wav"],
+                 ["-d", "x.glc", "--wav", "--flac-level", "9"],
+                 [str(tmp_path / "nope.mp3")]):
+        codes = [cli.main(list(args)) for cli in (jax_cli, torch_cli)]
+        assert codes[0] == codes[1] == 1, args
+    capsys.readouterr()

@@ -1,0 +1,104 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the JAX
+package, no source file of it imports them, and its CUDA kernel is built
+for Hopper (sm_90a) from the source under glc_tpu_torch/csrc/."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from glc_tpu_torch.ops import kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "glc_tpu_torch"
+
+_CHILD = """
+import importlib, pkgutil, sys
+import glc_tpu_torch
+for m in pkgutil.walk_packages(glc_tpu_torch.__path__, "glc_tpu_torch."):
+    if not m.name.endswith(".__main__"):  # that one runs the CLI
+        importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "glc_tpu" or m.startswith("glc_tpu."))
+print(" ".join(bad))
+"""
+
+
+def test_import_loads_no_jax():
+    """Every module of the port imports in a fresh interpreter without
+    pulling `jax` or `glc_tpu` into sys.modules (the card's machine has no
+    JAX at all)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"loaded: {proc.stdout.strip()}"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+glc_tpu\b(?!_torch)"
+    r"|from\s+glc_tpu\b(?!_torch))",
+    re.MULTILINE,
+)
+
+
+def test_no_source_imports_jax():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    offenders = [str(f.relative_to(REPO)) for f in files
+                 if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_kernel_build_command_targets_sm90a():
+    """The loader builds csrc/imdct_window.cu with nvcc for sm_90a as a
+    plain shared library, without fast math (the command is checked, not
+    run: there is no nvcc here)."""
+    assert kernels.SOURCE == PKG / "csrc" / "imdct_window.cu"
+    assert kernels.SOURCE.is_file()
+    out = kernels.library_path()
+    assert out.parent == REPO / "build" / "glc_tpu_torch"
+    cmd = kernels.build_command(out, nvcc="nvcc")
+    assert cmd[0] == "nvcc"
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
+    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    assert cmd[-1] == str(kernels.SOURCE)
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    src = kernels.SOURCE.read_text()
+    assert 'extern "C" int glc_imdct_window(' in src
+    assert "pallas_kernels.py" in src  # names the TPU kernel it replaces
+
+
+def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
+    """An edit of the source renames the library, so it is rebuilt."""
+    before = kernels.library_path()
+    edited = tmp_path / "imdct_window.cu"
+    edited.write_text(kernels.SOURCE.read_text() + "\n// edit\n")
+    monkeypatch.setattr(kernels, "SOURCE", edited)
+    after = kernels.library_path()
+    assert after.parent == before.parent and after.name != before.name
+
+
+def test_package_sets_full_f32_matmul():
+    """The counterpart of the JAX package's Precision.HIGHEST."""
+    import glc_tpu_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_wrapper_refuses_other_devices():
+    """Only a CPU tensor takes the plain version; any other device that is
+    not CUDA raises instead of falling back."""
+    n = 1024
+    meta = torch.empty((4, n), device="meta")
+    with pytest.raises(ValueError):
+        kernels.imdct_window(meta, torch.empty((n, 2 * n), device="meta"),
+                             torch.empty(2 * n, device="meta"), 1.0)
