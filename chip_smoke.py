@@ -8,12 +8,14 @@ Phases, each printing its own line(s):
 1. device — torch version, card name, and the card's name and power limit
    from nvidia-smi;
 2. build  — builds (or loads) the hand-written imdct_window kernel from
-   glc_tpu_torch/csrc/ and prints the seconds it took;
-3. kernel — imdct_window against its plain PyTorch version at B = 2816
-   rows (one default decode chunk of stereo) and a ragged B = 1000:
-   atol = rtol = 2e-5, both errors against a float64 product, the kernel's
-   no more than 2x the plain version's; median time of 20 runs after 3
-   warm-ups, with CUDA events;
+   glc_tpu_torch/csrc/ and prints the seconds it took, and the registers,
+   spills and shared memory the build gave it;
+3. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
+   PyTorch version at B = 2816 rows (one default decode chunk of stereo),
+   at every edge of its 128-row tile (1, 63, 64, 65, 127, 128, 129) and at
+   a ragged 1000: atol = rtol = 2e-5, both errors against a float64
+   product, the kernel's no more than 2x the plain version's; median time
+   of 20 runs after 3 warm-ups, with CUDA events;
 4. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
    envelopes, 5 s of white noise, 1 s of silence) through
    Encoder.encode_pcm16 → save_encoded → load_encoded →
@@ -53,6 +55,7 @@ from glc_tpu_torch.parity import check_containers
 SAMPLE_RATE = 44100
 SECONDS = 180
 KERNEL_TOL = 2e-5
+KERNEL_ROWS = (2816, 1, 63, 64, 65, 127, 128, 129, 1000)
 
 
 def phase_device():
@@ -69,12 +72,18 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernel; returns its design line for the kernel phase."""
     cached = kernels.library_path().exists()
     t0 = time.perf_counter()
     kernels.load_library()
     secs = time.perf_counter() - t0
+    info = kernels.kernel_info()
     print(f"[build] {kernels.library_path().name}: "
           f"{'loaded' if cached else 'built'} in {secs:.2f} s")
+    return (f"3xTF32 wgmma, TMA, {info['stages']} stages; "
+            f"{info['registers']} regs/thread, {info['local_bytes']} B local, "
+            f"smem {info['static_smem']} B static + {info['dynamic_smem']} B "
+            f"dynamic")
 
 
 def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -92,13 +101,13 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def phase_kernel(tables):
+def phase_kernel(tables, design: str):
     n = tables.n
     rng = np.random.default_rng(1)
     table64 = tables.cos_table.double()
     window64 = tables.window.double()
     result = {}
-    for B in (2816, 1000):
+    for B in KERNEL_ROWS:
         coeffs = torch.from_numpy(
             (rng.standard_normal((B, n)) * 0.1).astype(np.float32)
         ).cuda()
@@ -117,7 +126,8 @@ def phase_kernel(tables):
                 f"plain version's {err_plain:.3e}")
         ms = _median_ms(lambda: imdct_window(*args))
         plain_ms = _median_ms(lambda: imdct_window_reference(*args))
-        print(f"[kernel] imdct_window B={B}: max|kernel-plain| {diff:.3e} "
+        print(f"[kernel] imdct_window ({design}) B={B}: "
+              f"max|kernel-plain| {diff:.3e} "
               f"(tol {KERNEL_TOL}); vs float64: kernel {err_kernel:.3e}, "
               f"plain {err_plain:.3e}; median of 20: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
@@ -217,9 +227,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name = phase_device()
-    phase_build()
+    design = phase_build()
     tables = get_codec_tables(1024, 2048, SAMPLE_RATE, "cuda")
-    kern = phase_kernel(tables)
+    kern = phase_kernel(tables, design)
     pcm = make_signal()
     encoded, out, launches = phase_main(pcm)
     phase_cpu(pcm, encoded, out)

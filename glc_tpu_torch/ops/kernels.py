@@ -4,14 +4,19 @@ its build.
 `imdct_window` replaces the TPU kernel
 ``glc_tpu/ops/pallas_kernels.py::imdct_fused``: the IMDCT product fused with
 the synthesis window, ``((coeffs @ cos_table) * norm) * window``.  The
-source is ``csrc/imdct_window.cu`` (CUDA C++ for sm_90a); it is compiled
-with nvcc on first use into ``build/glc_tpu_torch/`` under the repository
-root, as a shared library with a plain C entry loaded through ctypes.  The
-library's file name carries a hash of the source, so an edit rebuilds it.
+source is ``csrc/imdct_window.cu`` (CUDA C++ for sm_90a: 3xTF32 `wgmma`
+fed by TMA); it is compiled with nvcc on first use into
+``build/glc_tpu_torch/`` under the repository root, as a shared library with
+a plain C entry loaded through ctypes.  The library's file name carries a
+hash of every file under ``csrc/`` and of the nvcc flags, so an edit of
+either rebuilds it.
+
+The kernel reads the cos table as its TF32 split (`split_tf32`), transposed
+to [2n, n]; `table_split` makes it once per table tensor and caches it.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 always launches the kernel or raises.  `imdct_window.launches` counts the
-kernel launches.
+kernel launches, `table_split.splits` the table splits.
 """
 
 from __future__ import annotations
@@ -24,14 +29,16 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from .mdct import imdct
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "imdct_window.cu"
+CSRC_DIR = _PKG_DIR / "csrc"
+SOURCE = CSRC_DIR / "imdct_window.cu"
 BUILD_DIR = _PKG_DIR.parent / "build" / "glc_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,9 +50,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    """Where the built library lives; the name carries the source hash."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libimdct_window-{digest}.so"
+    """Where the built library lives; the name carries a hash of every file
+    under ``csrc/`` (names and contents) and of `NVCC_FLAGS`."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        h.update(b"\0" + f.relative_to(CSRC_DIR).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libimdct_window-{h.hexdigest()[:16]}.so"
 
 
 def find_nvcc() -> str:
@@ -98,12 +109,66 @@ def load_library() -> ctypes.CDLL:
         c = ctypes
         lib.glc_imdct_window.restype = c.c_int
         lib.glc_imdct_window.argtypes = [
-            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # coeffs, table, window, out
-            c.c_int, c.c_int, c.c_float,                      # B, n, norm
-            c.c_void_p,                                       # stream
+            c.c_void_p, c.c_void_p, c.c_void_p,  # coeffs, table_hi, table_lo
+            c.c_void_p, c.c_void_p,              # window, out
+            c.c_int, c.c_int, c.c_float,         # B, n, norm
+            c.c_void_p,                          # stream
         ]
+        lib.glc_imdct_window_info.restype = c.c_int
+        lib.glc_imdct_window_info.argtypes = [c.POINTER(c.c_int)]
         _lib = lib
         return lib
+
+
+def kernel_info() -> Dict[str, int]:
+    """What the build made of the kernel (needs a CUDA device): registers
+    and local (spill) bytes a thread, static and dynamic shared memory a
+    block, pipeline stages."""
+    lib = load_library()
+    info = (ctypes.c_int * 5)()
+    rc = lib.glc_imdct_window_info(info)
+    if rc != 0:
+        raise RuntimeError(f"imdct_window info failed: CUDA error {rc}")
+    return {
+        "registers": info[0], "local_bytes": info[1],
+        "static_smem": info[2], "dynamic_smem": info[3], "stages": info[4],
+    }
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10-bit mantissa), ties away from zero,
+    as PTX ``cvt.rna.tf32.f32`` rounds: on the bit pattern,
+    ``(u + 0x1000) & 0xFFFFE000``."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of an f32 tensor: ``hi = tf32(x)``,
+    ``lo = tf32(x - hi)``, so that ``|x - hi - lo| <= 2**-22 * |x|``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {x.dtype}")
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+_SPLITS = WeakTensorKeyDictionary()
+
+
+def table_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``split_tf32(cos_table.T)``, each half [2n, n] contiguous, made once
+    per table tensor (and again only if it is changed in place) and held as
+    long as the table lives."""
+    hit = _SPLITS.get(cos_table)
+    if hit is not None and hit[0] == cos_table._version:
+        return hit[1], hit[2]
+    hi, lo = split_tf32(cos_table.t().contiguous())
+    _SPLITS[cos_table] = (cos_table._version, hi, lo)
+    table_split.splits += 1
+    return hi, lo
+
+
+table_split.splits = 0
 
 
 def imdct_window_reference(coeffs: torch.Tensor, cos_table: torch.Tensor,
@@ -148,10 +213,11 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     if B == 0:
         return out
     lib = load_library()
+    table_hi, table_lo = table_split(cos_table)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.glc_imdct_window(
-        coeffs.data_ptr(), cos_table.data_ptr(), window.data_ptr(),
-        out.data_ptr(), B, n, float(norm), stream,
+        coeffs.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
+        window.data_ptr(), out.data_ptr(), B, n, float(norm), stream,
     )
     if rc != 0:
         raise RuntimeError(f"imdct_window launch failed: CUDA error {rc}")

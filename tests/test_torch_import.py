@@ -80,7 +80,7 @@ def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
     before = kernels.library_path()
     edited = tmp_path / "imdct_window.cu"
     edited.write_text(kernels.SOURCE.read_text() + "\n// edit\n")
-    monkeypatch.setattr(kernels, "SOURCE", edited)
+    monkeypatch.setattr(kernels, "CSRC_DIR", tmp_path)
     after = kernels.library_path()
     assert after.parent == before.parent and after.name != before.name
 
