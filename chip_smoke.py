@@ -11,11 +11,16 @@ Phases, each printing its own line(s):
    glc_tpu_torch/csrc/ and prints the seconds it took, and the registers,
    spills and shared memory the build gave it;
 3. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
-   PyTorch version at B = 2816 rows (one default decode chunk of stereo),
-   at every edge of its 128-row tile (1, 63, 64, 65, 127, 128, 129) and at
-   a ragged 1000: atol = rtol = 2e-5, both errors against a float64
-   product, the kernel's no more than 2x the plain version's; median time
-   of 20 runs after 3 warm-ups, with CUDA events;
+   PyTorch version at every edge of its 128-row tile (1, 63, 64, 65, 127,
+   128, 129), at a ragged 1000, and at every row count the paths below
+   launch it with (each chunk's frames x 2 channels at the decode and the
+   stream chunk sizes, on the 180 s file and the 10 s excerpt: 2816 and
+   1424 for decode_i16 and decode_streaming, 2048 and 1168 for the
+   export, 862 for the excerpt's one chunk): atol = rtol = 2e-5, both errors against a float64 product, the
+   kernel's no more than 2x the plain version's; median time of 20 runs
+   after 3 warm-ups, with CUDA events.  The decode's calls of the kernel
+   are recorded by row count, and the run fails if a path launched it at
+   a row count this phase did not check;
 4. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
    envelopes, 5 s of white noise, 1 s of silence) through
    Encoder.encode_pcm16 → save_encoded → load_encoded →
@@ -24,15 +29,36 @@ Phases, each printing its own line(s):
 5. card vs CPU — the same input through the port on the CPU (plain
    versions): the containers agree within the pair contract
    (glc_tpu_torch/parity.py) and decode_i16 of the card's container is
-   within 1 LSB on the card and on the CPU.
+   within 1 LSB on the card and on the CPU;
+6. native — the shared C++ runtime (native/, built with make on first
+   use): says whether it was built or loaded, and fails without it or
+   without its frame packer, so that the export below is the shipped path;
+7. export — the CLI's default decode on the 180 s container:
+   decode_i16_stream(chunk_frames=1024) → encode_flac_i16_streaming(level
+   5), timed after a warm-up call, with the kernel's launches of the timed
+   call alone (one a chunk); the stream equals decode_i16 bit for bit, the
+   bytes equal encode_flac_i16_with_level of decode_i16, and decode_flac
+   gives back the samples, their format and their MD5;
+8. cli — glc_tpu_torch.cli.main on a 10 s excerpt: WAV → .glc, .glc → FLAC
+   (the default), FLAC → .glc; the FLAC holds decode_i16 of the .glc and
+   the container from the FLAC equals Encoder.encode_pcm16 of its samples;
+9. flac math — flac_block_stats on the card against its host twin, orders
+   0-4, 4096-sample blocks at level 5's partition order, on the decoded
+   180 s output: exactly equal;
+10. stream — decode_streaming on the card: 500-frame chunks but the last,
+   Progress ending in "complete", the trimmed concatenation equal to
+   decode within 1e-6 and within 1 LSB of decode_i16.
 
-Then one JSON line with the kernel table, and as the last line
+Every path counts the kernel's launches from 0 just before it runs and
+checks them just after.  Then one JSON line with the kernel table (its
+launch count is the main path's), and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero;
 without a CUDA device the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -44,10 +70,23 @@ import numpy as np
 import torch
 
 import glc_tpu_torch  # noqa: F401  (turns TF32 off: full-f32 matmuls)
-from glc_tpu_torch import Decoder, Encoder, load_encoded, save_encoded
+from glc_tpu_torch import (
+    Decoder, Encoder, load_encoded, save_encoded, serialize_encoded,
+)
+from glc_tpu_torch import cli, native
+from glc_tpu_torch.codec.decoder import gapless_trim_bounds
 from glc_tpu_torch.codec.encoder import upload_geometry
 from glc_tpu_torch.codec.tables import chunk_size_for, get_codec_tables
 from glc_tpu_torch.config import DEFAULT_CONFIG
+from glc_tpu_torch.container.schema import ProgressKind
+from glc_tpu_torch.flac import bitpack
+from glc_tpu_torch.flac.decoder import decode_flac
+from glc_tpu_torch.flac.encoder import (
+    encode_flac_i16_streaming, encode_flac_i16_with_level,
+)
+from glc_tpu_torch.flac.ops import flac_block_stats, flac_block_stats_host
+from glc_tpu_torch.io.wav import convert_f32_to_i16, write_wav_i16
+from glc_tpu_torch.ops import decode as decode_ops
 from glc_tpu_torch.ops import kernels
 from glc_tpu_torch.ops.kernels import imdct_window, imdct_window_reference
 from glc_tpu_torch.parity import check_containers
@@ -55,7 +94,10 @@ from glc_tpu_torch.parity import check_containers
 SAMPLE_RATE = 44100
 SECONDS = 180
 KERNEL_TOL = 2e-5
-KERNEL_ROWS = (2816, 1, 63, 64, 65, 127, 128, 129, 1000)
+KERNEL_EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
+CLI_SECONDS = 10
+FLAC_LEVEL = 5
+STREAM_TOL = 1e-6
 
 
 def phase_device():
@@ -101,13 +143,43 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def phase_kernel(tables, design: str):
+def path_rows(pcm: np.ndarray) -> list[int]:
+    """The row counts the paths launch imdct_window with: every chunk's
+    frames x 2 channels, at the decode and the stream chunk sizes, on the
+    180 s file and on the CLI's 10 s excerpt."""
+    cfg = DEFAULT_CONFIG
+    rows = set()
+    for samples in (len(pcm), CLI_SECONDS * SAMPLE_RATE * 2):
+        F = upload_geometry(samples, 2, cfg)[1]
+        for max_chunk in (cfg.decode_chunk_frames, cfg.stream_chunk_frames):
+            chunk = chunk_size_for(F, max_chunk)
+            rows.update(2 * min(chunk, F - s) for s in range(0, F, chunk))
+    return sorted(rows, reverse=True)
+
+
+LAUNCHED_ROWS: set[int] = set()
+
+
+def record_launch_rows():
+    """Route the decode's calls of the kernel wrapper through a recorder of
+    their row counts; the wrapper itself, and its launch count, stay as
+    they are."""
+    wrapper = decode_ops.imdct_window
+
+    def recorded(coeffs, *args):
+        LAUNCHED_ROWS.add(coeffs.shape[0])
+        return wrapper(coeffs, *args)
+
+    decode_ops.imdct_window = recorded
+
+
+def phase_kernel(tables, design: str, rows):
     n = tables.n
     rng = np.random.default_rng(1)
     table64 = tables.cos_table.double()
     window64 = tables.window.double()
     result = {}
-    for B in KERNEL_ROWS:
+    for B in rows:
         coeffs = torch.from_numpy(
             (rng.standard_normal((B, n)) * 0.1).astype(np.float32)
         ).cuda()
@@ -222,19 +294,219 @@ def phase_cpu(pcm: np.ndarray, encoded_cuda, out_cuda):
           f"{int(np.count_nonzero(d))} of {len(d)} samples")
 
 
+def phase_native():
+    """The shared C++ runtime: built by make on first use, or loaded."""
+    cached = native._SO_PATH.exists()
+    t0 = time.perf_counter()
+    lib = native.get_native()
+    secs = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError(f"native library {native._SO_PATH} missing")
+    for fn in ("glc_flac_pack_frames", "glc_flac_block_stats"):
+        if not hasattr(lib, fn):
+            raise AssertionError(f"native library lacks {fn}")
+    print(f"[native] {native._SO_PATH.name}: "
+          f"{'loaded' if cached else 'built'} in {secs:.2f} s")
+
+
+def export_flac(dec: Decoder, encoded, parts=None) -> bytes:
+    """The CLI's default decode (glc_tpu_torch/cli.py decode_file): the int16
+    stream at stream_chunk_frames into the streaming FLAC encoder.  With
+    `parts`, the stream's chunks are kept there too."""
+    n_total = dec.decoded_length(encoded)
+
+    def stream():
+        for part in dec.decode_i16_stream(
+                encoded, chunk_frames=dec.config.stream_chunk_frames):
+            if parts is not None:
+                parts.append(part)
+            yield part
+
+    return encode_flac_i16_streaming(stream(), SAMPLE_RATE, 2, FLAC_LEVEL,
+                                     n_total // 2)
+
+
+def phase_export(encoded, out):
+    cfg = DEFAULT_CONFIG
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    t0 = time.perf_counter()
+    warm = export_flac(dec, encoded)  # warm-up
+    t_warm = time.perf_counter() - t0
+    parts = []
+    imdct_window.launches = 0
+    t0 = time.perf_counter()
+    data = export_flac(dec, encoded, parts)
+    t_exp = time.perf_counter() - t0
+    launches = imdct_window.launches
+
+    F = encoded.frame_set.num_frames
+    chunks = -(-F // chunk_size_for(F, cfg.stream_chunk_frames))
+    if launches != chunks:
+        raise AssertionError(
+            f"export launched imdct_window {launches} times for {chunks} "
+            f"chunks")
+    stream = np.concatenate(parts)
+    if not np.array_equal(stream, out):
+        raise AssertionError("decode_i16_stream(1024) != decode_i16 on the "
+                             "card")
+    whole = encode_flac_i16_with_level(out, SAMPLE_RATE, 2, FLAC_LEVEL)
+    if data != whole or warm != data:
+        raise AssertionError("streamed FLAC bytes != whole-stream bytes")
+    samples, rate, channels, bps = decode_flac(data)
+    if (rate, channels, bps) != (SAMPLE_RATE, 2, 16):
+        raise AssertionError(f"FLAC header says {rate} Hz, {channels} ch, "
+                             f"{bps} bits")
+    if not np.array_equal(samples, out.astype(np.int32)):
+        raise AssertionError("decode_flac does not give back the samples")
+    if data[26:42] != hashlib.md5(out.astype("<i2").tobytes()).digest():
+        raise AssertionError("STREAMINFO MD5 is not the samples' MD5")
+    audio_s = len(out) / 2 / SAMPLE_RATE
+    print(f"[export] decode_i16_stream({cfg.stream_chunk_frames}) -> "
+          f"encode_flac_i16_streaming(level {FLAC_LEVEL}) of {audio_s:.0f} s "
+          f"stereo: {t_exp:.3f} s ({audio_s / t_exp:.1f}x realtime; warm-up "
+          f"call {t_warm:.3f} s); {len(data)} bytes "
+          f"({len(data) / (2 * len(out)):.3f} of the PCM); imdct_window "
+          f"launches {launches} == {chunks} chunks of {len(parts)}; stream == "
+          f"decode_i16, bytes == whole-stream, decode_flac and MD5 agree")
+    return launches
+
+
+def phase_cli(pcm: np.ndarray):
+    """glc_tpu_torch.cli.main, as a user calls it, on a 10 s excerpt."""
+    cfg = DEFAULT_CONFIG
+    excerpt = np.ascontiguousarray(pcm[: CLI_SECONDS * SAMPLE_RATE * 2])
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "excerpt.wav"
+        glc = wav.with_suffix(".glc")
+        flac = wav.with_suffix(".flac")
+        write_wav_i16(wav, excerpt, SAMPLE_RATE, 2)
+        imdct_window.launches = 0
+        rcs = [cli.main([str(wav)])]
+        encoded = load_encoded(glc)
+        rcs.append(cli.main(["-d", str(glc)]))
+        launches = imdct_window.launches
+        want = Decoder(2, SAMPLE_RATE, device="cuda").decode_i16(encoded)
+        samples, rate, channels, _bps = decode_flac(flac.read_bytes())
+        if not np.array_equal(samples, want.astype(np.int32)):
+            raise AssertionError("CLI FLAC != decode_i16 of its .glc")
+        wav.unlink()
+        rcs.append(cli.main([str(flac)]))
+        again = load_encoded(glc)
+        if rcs != [0, 0, 0]:
+            raise AssertionError(f"CLI exit codes {rcs}")
+        ref = Encoder(SAMPLE_RATE, device="cuda").encode_pcm16(
+            samples.astype(np.int16), channels)
+        if serialize_encoded(again) != serialize_encoded(ref):
+            raise AssertionError("FLAC input container != encode_pcm16 of "
+                                 "its samples")
+        F = encoded.frame_set.num_frames
+        chunks = -(-F // chunk_size_for(F, cfg.stream_chunk_frames))
+        if launches != chunks:
+            raise AssertionError(f"the CLI decode launched imdct_window "
+                                 f"{launches} times for {chunks} chunks")
+    print(f"[cli] wav -> glc -> flac -> glc on {CLI_SECONDS} s: exit codes "
+          f"{rcs}; FLAC == decode_i16, FLAC-input container == encode_pcm16; "
+          f"imdct_window launches {launches} == {chunks} chunks")
+
+
+def phase_flac_math(out: np.ndarray):
+    bs = 4096
+    blocks = len(out) // 2 // bs
+    x = (out[: blocks * bs * 2].reshape(blocks, bs, 2).transpose(0, 2, 1)
+         .reshape(-1, bs).astype(np.int32))
+    xd = torch.from_numpy(x).cuda()
+    for order in range(5):
+        po = bitpack.partition_order(bs, order, FLAC_LEVEL)
+        got = [t.cpu().numpy() for t in flac_block_stats(xd, order=order,
+                                                         po=po)]
+        want = flac_block_stats_host(x, order=order, po=po)
+        for g, w in zip(got, want, strict=True):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(
+                    f"flac_block_stats order {order} differs on the card")
+    print(f"[flac math] flac_block_stats on the card == host twin for "
+          f"orders 0-4 on [{x.shape[0]}, {bs}] int32 blocks "
+          f"(level {FLAC_LEVEL} partition orders)")
+
+
+def phase_stream(encoded, out):
+    cfg = DEFAULT_CONFIG
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    msgs = []
+    imdct_window.launches = 0
+    t0 = time.perf_counter()
+    rx = dec.decode_streaming(encoded, msgs.append)
+    chunks = []
+    while True:
+        c = rx.get(timeout=300)
+        if c.error is not None:
+            raise AssertionError(f"decode_streaming failed: {c.error}")
+        chunks.append(c)
+        if c.is_last:
+            break
+    t_stream = time.perf_counter() - t0
+    launches = imdct_window.launches
+    F = encoded.frame_set.num_frames
+    want_chunks = -(-F // chunk_size_for(F, cfg.decode_chunk_frames))
+    if launches != want_chunks:
+        raise AssertionError(f"decode_streaming launched imdct_window "
+                             f"{launches} times for {want_chunks} chunks")
+    full_len = cfg.frames_per_chunk * cfg.n * 2
+    if any(len(c.samples) != full_len for c in chunks[:-1]):
+        raise AssertionError("a decode_streaming chunk is not 500 frames")
+    if len(chunks) != F // cfg.frames_per_chunk + 1:
+        raise AssertionError(f"{len(chunks)} chunks for {F} frames")
+    if msgs[-1].kind is not ProgressKind.COMPLETE:
+        raise AssertionError(f"last Progress is {msgs[-1].kind}")
+    full = np.concatenate([c.samples for c in chunks])
+    skip, limit = gapless_trim_bounds(len(full), encoded.gapless_info, 2,
+                                      cfg.reference_compat)
+    trimmed = full[skip : skip + limit]
+    f32 = dec.decode(encoded)
+    err = float(np.abs(trimmed - f32).max())
+    if len(trimmed) != len(f32) or err > STREAM_TOL:
+        raise AssertionError(f"stream vs decode: {err}")
+    lsb = np.abs(convert_f32_to_i16(f32).astype(np.int32)
+                 - out.astype(np.int32)).max()
+    if lsb > 1:
+        raise AssertionError(f"decode vs decode_i16: {lsb} LSB")
+    print(f"[stream] decode_streaming: {len(chunks)} chunks of "
+          f"{cfg.frames_per_chunk} frames but the last "
+          f"({len(chunks[-1].samples)} samples), {len(msgs)} Progress "
+          f"messages ending in {msgs[-1].kind.value}; trimmed == decode "
+          f"within {err:.1e} (tol {STREAM_TOL}); decode vs decode_i16 "
+          f"{lsb} LSB; {t_stream:.3f} s; imdct_window launches {launches} "
+          f"== {want_chunks} chunks")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name = phase_device()
     design = phase_build()
+    phase_native()
     tables = get_codec_tables(1024, 2048, SAMPLE_RATE, "cuda")
-    kern = phase_kernel(tables, design)
     pcm = make_signal()
+    kern = phase_kernel(tables, design,
+                        sorted(set(path_rows(pcm)) | set(KERNEL_EDGES),
+                               reverse=True))
+    record_launch_rows()
     encoded, out, launches = phase_main(pcm)
     phase_cpu(pcm, encoded, out)
+    phase_export(encoded, out)
+    phase_cli(pcm)
+    phase_flac_math(out)
+    phase_stream(encoded, out)
+    unchecked = LAUNCHED_ROWS - set(kern)
+    if not LAUNCHED_ROWS or unchecked:
+        raise AssertionError(f"imdct_window launched at rows "
+                             f"{sorted(unchecked)} not checked against plain")
+    print(f"[kernel] the paths launched imdct_window at rows "
+          f"{sorted(LAUNCHED_ROWS, reverse=True)}, each checked against the "
+          f"plain version above")
 
-    diff, ms, plain_ms = kern[2816]
+    diff, ms, plain_ms = kern[2 * DEFAULT_CONFIG.decode_chunk_frames]
     print(json.dumps({"kernels": [{
         "name": "imdct_window",
         "route": "cuda",

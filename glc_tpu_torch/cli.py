@@ -1,17 +1,17 @@
 """`glc` command-line interface of the port (mirrors reference src/main.rs).
 
 Port of ``glc_tpu/cli.py`` with the same arguments, printed lines and exit
-codes for what is ported:
+codes:
 
-    python -m glc_tpu_torch <file.wav> ...         Encode WAV files to .glc
-    python -m glc_tpu_torch -d <file.glc> ... --wav  Decode .glc files to WAV
+    python -m glc_tpu_torch <file.wav|file.flac> ...                    Encode to .glc
+    python -m glc_tpu_torch -d <file.glc> ... [--wav] [--flac-level N]  Decode .glc files
 
-Not ported yet, and refused with exit code 2 instead of falling through:
-FLAC export (``-d`` without ``--wav``, the default) and playback (``-p``).
-FLAC input is reported as an error per file, and with no arguments the
-usage is printed (the JAX package would try its GUI).  Files are encoded
-one after another; the JAX CLI batches them, which changes only when its
-"Saved" lines print.
+Decoding writes FLAC by default (`Decoder.decode_i16_stream` feeding
+`encode_flac_i16_streaming`), or WAV with ``--wav``.  Not ported yet, and
+refused with exit code 2 instead of falling through: playback (``-p``).
+With no arguments the usage is printed (the JAX package would try its
+GUI).  Files are encoded one after another; the JAX CLI batches them,
+which changes only when its "Saved" lines print.
 """
 
 from __future__ import annotations
@@ -34,46 +34,36 @@ def is_glc_file(path: Path) -> bool:
 
 
 def print_usage() -> None:
-    """main.rs:330-352, less what is not ported."""
+    """main.rs:330-352, less playback and the GUI."""
     e = lambda s="": print(s, file=sys.stderr)
     e("Usage:")
-    e("  glc <file.wav> ...                Encode audio files to .glc")
-    e("  glc -d <file.glc> ... --wav       Decode .glc files to WAV")
+    e("  glc <file.wav|file.flac> ...                    Encode audio files to .glc")
+    e("  glc -d <file.glc> ... [--wav] [--flac-level N]  Decode .glc files")
     e()
     e("Options:")
-    e("  -d, --decode       Decode .glc files (FLAC export is not ported yet)")
-    e("      --wav          Output WAV format")
+    e("  -d, --decode       Decode .glc files to FLAC (default) or WAV")
+    e("      --wav          Output WAV format instead of FLAC")
+    e("      --flac-level   Set FLAC compression level 0-8 (default: 5)")
     e()
     e("Examples:")
     e("  glc audio.wav                         # Encode to audio.glc")
     e("  glc -d file1.glc file2.glc --wav      # Decode multiple files to WAV")
+    e("  glc -d file.glc --flac-level 8        # Decode with maximum FLAC compression")
     e()
-    e("Supported formats: WAV (input), GLC (decode)")
-
-
-def load_wav_for_encode(path: Path):
-    """(samples, sample_rate, channels, is_pcm16): int16 samples for 16-bit
-    PCM WAVs (the encoder's exact half-upload path), float32 otherwise."""
-    from .io.wav import read_wav, read_wav_pcm16
-
-    if path.suffix.lower() != ".wav":
-        raise ValueError("FLAC input is not ported yet")
-    pcm16 = read_wav_pcm16(path)
-    if pcm16 is not None:
-        samples, rate, ch = pcm16
-        return samples, rate, ch, True
-    samples, rate, ch = read_wav(path)
-    return samples, rate, ch, False
+    e("Supported formats: WAV, FLAC (input), GLC (decode)")
 
 
 def encode_file(input_path: Path) -> None:
     """main.rs:20-52 — load → encode → save, with the reference's printed
-    lines."""
+    lines.  16-bit sources (WAV or FLAC) take the exact int16 path."""
     from .codec.encoder import Encoder
     from .container.bincode import save_encoded
+    from .io.audio import load_audio_for_encode
 
     print(f"Loading: {input_path.name!r}")
-    samples, sample_rate, channels, is_pcm16 = load_wav_for_encode(input_path)
+    samples, sample_rate, channels, is_pcm16 = load_audio_for_encode(
+        input_path
+    )
     print(f"Encoding: {sample_rate} Hz, {channels} channels, "
           f"{len(samples)} samples")
 
@@ -91,10 +81,11 @@ def encode_file(input_path: Path) -> None:
           f"{ratio:.1f}% of original)")
 
 
-def decode_file(input_path: Path) -> None:
-    """main.rs:54-113, WAV output."""
+def decode_file(input_path: Path, output_format: str, flac_level: int) -> None:
+    """main.rs:54-113"""
     from .codec.decoder import Decoder
     from .container.bincode import load_encoded
+    from .flac.encoder import encode_flac_i16_streaming
     from .io.wav import write_wav_i16
 
     print(f"Loading: {input_path.name!r}")
@@ -103,13 +94,35 @@ def decode_file(input_path: Path) -> None:
           f"{encoded.header.channels} channels")
 
     decoder = Decoder(encoded.header.channels, encoded.header.sample_rate)
+    if output_format == "flac":
+        # streaming export: the MD5 and the predictor/Rice math run on a
+        # worker thread while the device decodes the next chunks; the bytes
+        # equal those of decode-then-encode
+        channels = encoded.header.channels
+        n_total = decoder.decoded_length(encoded)
+        data = encode_flac_i16_streaming(
+            decoder.decode_i16_stream(
+                encoded,
+                chunk_frames=decoder.config.stream_chunk_frames),
+            encoded.header.sample_rate, channels, flac_level,
+            n_total // channels,
+        )
+        print(f"Decoded {n_total} samples")
+        output_path = input_path.with_suffix(".flac")
+        output_path.write_bytes(data)
+        print(f"Saved: {output_path.name!r} (FLAC, level {flac_level})")
+        return
+
     samples = decoder.decode_i16(encoded)
     print(f"Decoded {len(samples)} samples")
 
-    output_path = input_path.with_suffix(".wav")
-    write_wav_i16(output_path, samples, encoded.header.sample_rate,
-                  encoded.header.channels)
-    print(f"Saved: {output_path.name!r} (WAV)")
+    if output_format == "wav":
+        output_path = input_path.with_suffix(".wav")
+        write_wav_i16(output_path, samples, encoded.header.sample_rate,
+                      encoded.header.channels)
+        print(f"Saved: {output_path.name!r} (WAV)")
+    else:
+        raise ValueError(f"Unsupported output format: {output_format}")
 
 
 def _main_decode(args: List[str]) -> int:
@@ -122,13 +135,14 @@ def _main_decode(args: List[str]) -> int:
     has_errors = False
     files_to_decode: List[Path] = []
     output_format = "flac"
+    flac_level = 5
     i = 0
     while i < len(args):
         a = args[i]
         if a == "--wav":
             output_format = "wav"
             i += 1
-        elif a == "--flac-level":  # validated as the JAX CLI does; unused
+        elif a == "--flac-level":
             if i + 1 >= len(args):
                 print("Error: --flac-level requires a value (0-8)",
                       file=sys.stderr)
@@ -156,17 +170,13 @@ def _main_decode(args: List[str]) -> int:
                 files_to_decode.append(path)
             i += 1
 
-    if output_format == "flac":
-        print("Error: FLAC export is not ported yet; pass --wav",
-              file=sys.stderr)
-        return 2
     if not files_to_decode:
         print("Error: No valid .glc files to decode", file=sys.stderr)
         return 1
 
     for path in files_to_decode:
         try:
-            decode_file(path)
+            decode_file(path, output_format, flac_level)
         except Exception as e:
             print(f"Error decoding file: {e}", file=sys.stderr)
             has_errors = True

@@ -1,33 +1,54 @@
 """GLC decoder: container → device IMDCT/window/overlap-add per chunk → trim.
 
-Port of ``glc_tpu/codec/decoder.py`` (``decode_i16``, ``decoded_length``,
-``decode`` and ``gapless_trim_bounds``).  API mirrors the reference
-(reference src/codec.rs:571-768):
+Port of ``glc_tpu/codec/decoder.py`` (``decode_streaming``,
+``decode_i16_stream`` with the single-track core of
+``_pipelined_i16_chunks``, ``decode_i16``, ``decode``, ``decoded_length``
+and ``gapless_trim_bounds``).  API mirrors the reference (reference
+src/codec.rs:571-768):
 
     dec = Decoder(channels, sample_rate, device="cuda")
-    pcm16 = dec.decode_i16(encoded)   # trimmed, interleaved int16
-    samples = dec.decode(encoded)     # trimmed, interleaved float32
+    for part in dec.decode_i16_stream(encoded):  # trimmed int16 chunks
+        ...
+    pcm16 = dec.decode_i16(encoded)              # trimmed, interleaved int16
+    rx = dec.decode_streaming(encoded, progress) # queue of AudioChunk (f32)
+    samples = dec.decode(encoded)                # trimmed, interleaved f32
 
 The frames are decoded in chunks of ``chunk_size_for(F,
 decode_chunk_frames)``; the overlap carry between chunks stays on the
 device.  Per chunk the host uploads the pair positions and values, the
 scales and the raw rows, and the device scatters, dequantizes, runs the
-IMDCT+window kernel, selects the raw rows, overlap-adds and (for
-`decode_i16`) converts to int16 before the download.
+IMDCT+window kernel, selects the raw rows, overlap-adds and (for the int16
+surfaces) converts to int16 before the download.
+
+There are two chunk loops, one per output type: `_pipelined_i16_chunks`
+(int16: `decode_i16_stream`, `decode_i16`) and the producer thread of
+`decode_streaming` (float32: `decode`).  On CUDA each chunk's download is
+queued into pinned memory with an event recorded after it; the host waits
+on that chunk's event only, with up to `_PIPELINE_DEPTH` chunks in flight.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import queue
+import threading
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..config import CodecConfig, DEFAULT_CONFIG
-from ..container.schema import EncodedAudio, FrameSet
+from ..container.schema import AudioChunk, EncodedAudio, FrameSet, Progress
 from ..ops.decode import blocks_from_frames, dense_q, overlap_add, to_i16
 from .device import resolve_device, upload
 from .tables import chunk_size_for, get_codec_tables
+
+ProgressSender = Callable[[Progress], None]
+
+# Chunks in flight in the int16 stream: dispatched, their downloads queued,
+# not yet handed to the consumer (glc_tpu/codec/decoder.py:83).  It bounds
+# the pinned host memory and device buffers a long file holds at once.
+_PIPELINE_DEPTH = 8
 
 
 def gapless_trim_bounds(pre_len: int, gapless_info, channels: int,
@@ -75,6 +96,37 @@ def chunk_pairs(fs: FrameSet, start: int, count: int, pair_start: int,
     return pos, vals
 
 
+class _Cancelled(Exception):
+    """Raised inside the producer thread when the consumer abandoned the
+    stream (rx.cancelled set)."""
+
+
+class _Download:
+    """One chunk's hops on their way to the host: a CPU tensor (pinned and
+    still being filled on CUDA) and the event recorded after its copy."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, hops: torch.Tensor, out_i16: bool):
+        """Queue [K, C, n] hops → interleaved [K, n, C] (int16 if asked);
+        on CUDA the copy does not block, into pinned memory."""
+        if out_i16:
+            hops = to_i16(hops)
+        hops = hops.transpose(1, 2).contiguous()
+        self.host = hops.to("cpu", non_blocking=hops.is_cuda)
+        self.event = None
+        if hops.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(hops.device))
+
+    def wait(self) -> np.ndarray:
+        """The host array, once this chunk's copy is done.  It keeps the
+        tensor, so its pinned block, alive for as long as it lives."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 class Decoder:
     """reference src/codec.rs:571-592 (stateless, Q8).  `device` is where
     the math runs ("cuda", "cpu", a torch.device; None picks CUDA when
@@ -103,17 +155,11 @@ class Decoder:
         )
         return limit
 
-    def decode_i16(self, encoded: EncodedAudio) -> np.ndarray:
-        """Decode to trimmed, interleaved int16: the exporters' conversion
-        trunc(clip(x·32767)) (audio.rs:9-16) applied on the device.  Within
-        1 LSB of ``convert_f32_to_i16(decode(encoded))``."""
-        return self._decode(encoded, out_i16=True)
-
-    def decode(self, encoded: EncodedAudio) -> np.ndarray:
-        """Decode to trimmed, interleaved float32 (codec.rs:744-768)."""
-        return self._decode(encoded, out_i16=False)
-
-    def _decode(self, encoded: EncodedAudio, *, out_i16: bool) -> np.ndarray:
+    def _chunks(self, encoded: EncodedAudio, chunk: int):
+        """Run the frames on the device in chunks of `chunk`, in order;
+        yields (valid frames, hops [valid, C, n] f32).  The last chunk's
+        hops carry one more row: the stream's overlap tail
+        (codec.rs:722-732), so its download brings the tail along."""
         cfg = self.config
         n = cfg.n
         dev = self.device
@@ -122,12 +168,10 @@ class Decoder:
         F = fs.num_frames
         frame_size = fs.frame_size
         window_raw = not cfg.reference_compat  # fix Q4 in clean mode
-        chunk = chunk_size_for(max(F, 1), cfg.decode_chunk_frames)
 
         pair_off = np.concatenate([[0], np.cumsum(fs.nnz.sum(axis=1))])
         raw_off = np.concatenate([[0], np.cumsum(fs.raw_mask)])
         carry = torch.zeros((C, n), dtype=torch.float32, device=dev)
-        outs = []
         for start in range(0, F, chunk):
             valid = min(chunk, F - start)
             pos, vals = chunk_pairs(fs, start, valid, int(pair_off[start]), n)
@@ -146,23 +190,244 @@ class Decoder:
                 max_q=cfg.max_q, window_raw=window_raw,
             )
             hops, carry = overlap_add(blocks, carry)
-            outs.append(self._epilogue(hops, out_i16))
-        # the stream's overlap tail (codec.rs:722-732), converted like a hop
-        outs.append(self._epilogue(carry[None], out_i16))
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-        full = np.concatenate([o.numpy().reshape(-1) for o in outs])
-        skip, limit = gapless_trim_bounds(
-            len(full), encoded.gapless_info, C, cfg.reference_compat
+            if start + chunk >= F:
+                hops = torch.cat([hops, carry[None]])
+            yield valid, hops
+
+    # --- int16: the stream and the whole-file decode (export path) ---
+
+    def decode_i16_stream(self, encoded: EncodedAudio,
+                          chunk_frames: Optional[int] = None):
+        """Generator of gapless-trimmed int16 interleaved chunks, in stream
+        order, with the exporters' conversion trunc(clip(x·32767))
+        (audio.rs:9-16) applied on the device.
+
+        The trim is applied incrementally: the guarded drain/truncate of
+        codec.rs:756-767 needs the pre-trim total, which is exact up front,
+        (F+1)·n·C interleaved samples (F hops plus the overlap tail).
+        `chunk_frames` overrides the decode chunk size (config
+        ``decode_chunk_frames``) for this stream; consumers that do host
+        work per chunk (the FLAC export) use ``stream_chunk_frames``.  The
+        yielded arrays stay valid after the generator moves on.
+        """
+        for _pos, flat in self._pipelined_i16_chunks(
+            [(0, encoded)], chunk_frames=chunk_frames
+        ):
+            yield flat
+
+    def _pipelined_i16_chunks(self, recs, chunk_frames: Optional[int] = None):
+        """Core of the int16 decode surfaces: drive the tracks in `recs` (a
+        list of ``(pos, EncodedAudio)``) chunk by chunk through the device
+        with one `_PIPELINE_DEPTH`-deep window of chunks in flight, yielding
+        ``(pos, trimmed_flat)`` in stream order.
+
+        Each chunk's int16 hops are queued to the host as a `_Download`;
+        chunk i is handed on only after waiting on chunk i's event, never
+        on the whole device, so the host's work on chunk i overlaps the
+        device's on the chunks after it.
+        """
+        cfg = self.config
+        n = cfg.n
+
+        # per-track trim state: pos -> [skip_left, emitted, limit]
+        trim_state: dict = {}
+
+        def trim(pos, flat):
+            st = trim_state[pos]
+            skip, emitted, limit = st
+            if skip:
+                cut = min(skip, len(flat))
+                flat = flat[cut:]
+                st[0] = skip - cut
+            if emitted + len(flat) > limit:
+                flat = flat[: limit - emitted]
+            st[1] = emitted + len(flat)
+            return flat
+
+        def collect(handle):
+            pos, download = handle
+            return pos, trim(pos, download.wait().reshape(-1))
+
+        handles: list = []
+        for pos, encoded in recs:
+            C = encoded.header.channels
+            F = encoded.frame_set.num_frames
+            chunk = chunk_size_for(max(F, 1),
+                                   chunk_frames or cfg.decode_chunk_frames)
+            skip, limit = gapless_trim_bounds(
+                (F + 1) * n * C, encoded.gapless_info, C,
+                cfg.reference_compat,
+            )
+            trim_state[pos] = [skip, 0, limit]
+            if F == 0:  # no chunks to run: the stream is the silent tail
+                tail = trim(pos, np.zeros(n * C, np.int16))
+                if len(tail):
+                    yield pos, tail
+                continue
+            for _valid, hops in self._chunks(encoded, chunk):
+                handles.append((pos, _Download(hops, out_i16=True)))
+                if len(handles) > _PIPELINE_DEPTH:
+                    pos_o, out = collect(handles.pop(0))
+                    if len(out):
+                        yield pos_o, out
+
+        for handle in handles:
+            pos_o, out = collect(handle)
+            if len(out):
+                yield pos_o, out
+
+    def decode_i16(self, encoded: EncodedAudio) -> np.ndarray:
+        """Decode to trimmed, interleaved int16: the concatenation of
+        `decode_i16_stream` at the default chunk size.  Within 1 LSB of
+        ``convert_f32_to_i16(decode(encoded))``."""
+        parts = list(self.decode_i16_stream(encoded))
+        if not parts:
+            return np.empty(0, np.int16)
+        return np.concatenate(parts)
+
+    # --- float32: the streaming decode (codec.rs:595-741) ---
+
+    def decode_streaming(
+        self,
+        encoded: EncodedAudio,
+        progress_sender: Optional[ProgressSender] = None,
+    ) -> "queue.Queue[AudioChunk]":
+        """Start a producer thread; returns a bounded queue of AudioChunk.
+
+        Chunks are frames_per_chunk (=500) frames of interleaved float32
+        samples; the final chunk carries the remainder plus the last
+        overlap tail and has ``is_last=True``.  The output is UNtrimmed,
+        exactly like the reference streaming path (the gapless trim only
+        happens in `decode`, codec.rs:744-768).  A consumer that abandons
+        the stream sets ``rx.cancelled``; a failure arrives as a terminal
+        ``AudioChunk(error=...)``.
+        """
+        rx: "queue.Queue[AudioChunk]" = queue.Queue(maxsize=5)
+        # the crossbeam analog: rx dropped → send errors → thread exits
+        rx.cancelled = threading.Event()  # type: ignore[attr-defined]
+        t = threading.Thread(
+            target=self._produce_safe,
+            args=(encoded, rx, progress_sender),
+            daemon=True,
         )
-        return full[skip : skip + limit]
+        t.start()
+        return rx
+
+    def _produce_safe(self, encoded, rx, progress_sender):
+        try:
+            if self.device.type == "cuda":
+                # this thread's current device is the decoder's
+                with torch.cuda.device(self.device):
+                    self._produce(encoded, rx, progress_sender)
+            else:
+                self._produce(encoded, rx, progress_sender)
+        except _Cancelled:
+            pass
+        except Exception as e:  # surface the failure instead of hanging rx
+            if progress_sender is not None:
+                try:
+                    progress_sender(Progress.error(str(e)))
+                except Exception:
+                    pass
+            try:
+                # must not be dropped: without a terminal chunk the consumer
+                # blocks forever (reference: crossbeam send blocks too)
+                self._put(
+                    rx,
+                    AudioChunk(samples=np.empty(0, np.float32), is_last=True,
+                               error=str(e)),
+                )
+            except _Cancelled:
+                pass
 
     @staticmethod
-    def _epilogue(hops: torch.Tensor, out_i16: bool) -> torch.Tensor:
-        """[K, C, n] hops → interleaved [K, n, C] (int16 if asked) on the
-        host; on CUDA the copy is queued without blocking, into pinned
-        memory."""
-        if out_i16:
-            hops = to_i16(hops)
-        hops = hops.transpose(1, 2).contiguous()
-        return hops.to("cpu", non_blocking=hops.is_cuda)
+    def _put(rx, chunk) -> None:
+        """Bounded put that gives up when the consumer cancelled."""
+        while True:
+            if rx.cancelled.is_set():
+                raise _Cancelled()
+            try:
+                rx.put(chunk, timeout=0.25)
+                return
+            except queue.Full:
+                continue
+
+    def _produce(self, encoded, rx, progress_sender):
+        cfg = self.config
+        n, C = cfg.n, encoded.header.channels
+        F = encoded.frame_set.num_frames
+        start_time = time.monotonic()
+
+        def send(p: Progress):
+            if progress_sender is not None:
+                progress_sender(p)
+
+        send(Progress.status(f"Starting streaming decode of {F} frames"))
+
+        flush_frames = cfg.frames_per_chunk
+        chunk = chunk_size_for(max(F, 1), cfg.decode_chunk_frames)
+        pending = []          # [frames, n, C] f32 host arrays
+        pending_frames = 0
+        emitted = 0           # frames emitted so far
+        tail = np.zeros((n, C), np.float32)  # F == 0: the tail is silence
+
+        def flush_full_chunks():
+            # Flush in exact 500-frame chunks, mirroring the per-frame
+            # accumulate-and-flush of codec.rs:706-717; progress uses the
+            # 0-based index of the frame that filled the chunk
+            # (codec.rs:710-714).
+            nonlocal pending, pending_frames, emitted
+            while pending_frames >= flush_frames:
+                buf = np.concatenate(pending) if len(pending) > 1 else pending[0]
+                out, rest = buf[:flush_frames], buf[flush_frames:]
+                pending = [rest] if len(rest) else []
+                pending_frames -= flush_frames
+                send(Progress.decoding((emitted + flush_frames - 1) / F * 100.0))
+                self._put(rx, AudioChunk(samples=out.reshape(-1),
+                                         is_last=False))
+                emitted += flush_frames
+
+        # one chunk of lookahead: chunk i+1 is queued on the device before
+        # the host waits for chunk i's download
+        inflight = None  # (download, valid)
+        for valid, hops in self._chunks(encoded, chunk):
+            prev, inflight = inflight, (_Download(hops, out_i16=False), valid)
+            if prev is not None:
+                pending.append(prev[0].wait())
+                pending_frames += prev[1]
+                flush_full_chunks()
+        if inflight is not None:
+            arr = inflight[0].wait()
+            valid = inflight[1]
+            pending.append(arr[:valid])
+            pending_frames += valid
+            tail = arr[valid]
+            flush_full_chunks()
+
+        # final chunk: remaining frames + last overlap tail (codec.rs:722-732)
+        rest = [p.reshape(-1) for p in pending]
+        last = np.concatenate(rest + [tail.reshape(-1)])
+        self._put(rx, AudioChunk(samples=last, is_last=True))
+        send(Progress.complete(
+            f"Decoded {F} frames in {time.monotonic() - start_time:.2f}s"
+        ))
+
+    def decode(self, encoded: EncodedAudio,
+               progress_sender: Optional[ProgressSender] = None) -> np.ndarray:
+        """Decode to trimmed, interleaved float32 (codec.rs:744-768): the
+        chunks of `decode_streaming`, joined and gapless-trimmed."""
+        rx = self.decode_streaming(encoded, progress_sender)
+        parts = []
+        while True:
+            chunk = rx.get()
+            if chunk.error is not None:
+                raise RuntimeError(f"decode failed: {chunk.error}")
+            parts.append(chunk.samples)
+            if chunk.is_last:
+                break
+        full = np.concatenate(parts)
+        skip, limit = gapless_trim_bounds(
+            len(full), encoded.gapless_info, encoded.header.channels,
+            self.config.reference_compat,
+        )
+        return full[skip : skip + limit]

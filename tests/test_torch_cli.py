@@ -1,6 +1,7 @@
-"""The port's `glc` CLI (python -m glc_tpu_torch): a WAV → .glc → WAV round
-trip, the lines it prints beside the JAX package's CLI, and the refusal of
-what is not ported yet (FLAC export)."""
+"""The port's `glc` CLI (python -m glc_tpu_torch): WAV and FLAC inputs to
+.glc, .glc to FLAC (the default, at any --flac-level) and to WAV, the lines
+it prints beside the JAX package's CLI, and the refusal of what is not
+ported yet (playback)."""
 
 import os
 import subprocess
@@ -11,7 +12,11 @@ import numpy as np
 
 import glc_tpu.cli as jax_cli
 import glc_tpu_torch.cli as torch_cli
-from glc_tpu_torch import Decoder, load_encoded
+import pytest
+
+from glc_tpu_torch import Decoder, Encoder, load_encoded, serialize_encoded
+from glc_tpu_torch.flac.decoder import decode_flac
+from glc_tpu_torch.flac.encoder import encode_flac_i16_with_level
 from glc_tpu_torch.io.wav import read_wav_pcm16, write_wav_i16
 
 REPO = Path(__file__).resolve().parent.parent
@@ -51,13 +56,78 @@ def test_wav_round_trip(tmp_path):
     assert np.array_equal(out, want)
 
 
-def test_flac_export_is_refused(tmp_path):
-    write_wav_i16(tmp_path / "a.wav", _pcm(0.1, 1), RATE, 1)
+def _decoded(glc):
+    return Decoder(load_encoded(glc).header.channels, RATE,
+                   device="cpu").decode_i16(load_encoded(glc))
+
+
+def test_decode_writes_flac_by_default(tmp_path):
+    write_wav_i16(tmp_path / "a.wav", _pcm(0.4, 1), RATE, 1)
     assert torch_cli.main([str(tmp_path / "a.wav")]) == 0
     proc = _run(["-d", "a.glc"], tmp_path)
-    assert proc.returncode == 2
-    assert "FLAC export is not ported yet" in proc.stderr
-    assert not (tmp_path / "a.flac").exists()
+    assert proc.returncode == 0, proc.stderr
+    assert "Saved: 'a.flac' (FLAC, level 5)" in proc.stdout
+    want = _decoded(tmp_path / "a.glc")
+    data = (tmp_path / "a.flac").read_bytes()
+    samples, rate, channels, bps = decode_flac(data)
+    assert (rate, channels, bps) == (RATE, 1, 16)
+    assert np.array_equal(samples, want.astype(np.int32))
+    assert data == encode_flac_i16_with_level(want, RATE, 1, 5)
+
+
+def test_flac_level_is_honoured(tmp_path):
+    write_wav_i16(tmp_path / "b.wav", _pcm(0.4), RATE, 2)
+    assert torch_cli.main([str(tmp_path / "b.wav")]) == 0
+    assert torch_cli.main(["-d", str(tmp_path / "b.glc"),
+                           "--flac-level", "8"]) == 0
+    want = _decoded(tmp_path / "b.glc")
+    data = (tmp_path / "b.flac").read_bytes()
+    assert data == encode_flac_i16_with_level(want, RATE, 2, 8)
+    assert data != encode_flac_i16_with_level(want, RATE, 2, 5)
+
+
+def test_flac_input_is_encoded(tmp_path):
+    """`glc x.flac`: a 16-bit FLAC takes the exact int16 encode."""
+    pcm = _pcm(0.5)
+    (tmp_path / "c.flac").write_bytes(
+        encode_flac_i16_with_level(pcm, RATE, 2, 5))
+    proc = _run(["c.flac"], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[:2] == [
+        "Loading: 'c.flac'", f"Encoding: {RATE} Hz, 2 channels, {len(pcm)} "
+        "samples"]
+    want = Encoder(RATE, device="cpu").encode_pcm16(pcm, 2)
+    assert (serialize_encoded(load_encoded(tmp_path / "c.glc"))
+            == serialize_encoded(want))
+
+
+@pytest.mark.parametrize("source", ["wav", "flac"])
+def test_flac_paths_print_the_same_lines_as_the_jax_cli(tmp_path, capsys,
+                                                        source):
+    """WAV or FLAC → .glc → FLAC with each package's CLI in this process:
+    the same stdout, line for line."""
+    pcm = _pcm(0.3)
+    lines = {}
+    for name, cli in (("jax", jax_cli), ("torch", torch_cli)):
+        d = tmp_path / name
+        d.mkdir()
+        src = d / f"song.{source}"
+        if source == "wav":
+            write_wav_i16(src, pcm, RATE, 2)
+        else:
+            src.write_bytes(encode_flac_i16_with_level(pcm, RATE, 2, 5))
+        assert cli.main([str(src)]) == 0
+        src.unlink()
+        assert cli.main(["-d", str(d / "song.glc"), "--flac-level", "3"]) == 0
+        lines[name] = capsys.readouterr().out.splitlines()
+    assert lines["torch"] == lines["jax"]
+    assert len(lines["torch"]) == 7
+    assert lines["torch"][-1] == "Saved: 'song.flac' (FLAC, level 3)"
+
+
+def test_playback_is_refused(tmp_path, capsys):
+    assert torch_cli.main(["-p", str(tmp_path / "x.glc")]) == 2
+    assert "playback is not ported yet" in capsys.readouterr().err
 
 
 def test_prints_the_same_lines_as_the_jax_cli(tmp_path, capsys):
