@@ -13,11 +13,12 @@ Phases, each printing its own line(s):
 3. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
    PyTorch version at every edge of its 128-row tile (1, 63, 64, 65, 127,
    128, 129), at a ragged 1000, and at every row count the paths below
-   launch it with (each chunk's frames x 2 channels at the decode and the
-   stream chunk sizes, on the 180 s file and the 10 s excerpt: 2816 and
-   1424 for decode_i16 and decode_streaming, 2048 and 1168 for the
-   export, 862 for the excerpt's one chunk): atol = rtol = 2e-5, both errors against a float64 product, the
-   kernel's no more than 2x the plain version's; median time of 20 runs
+   launch it with (`path_rows`: each chunk's frames x 2 channels at the
+   decode and the stream chunk sizes, on the 180 s file, the 10 s excerpt
+   and the album tracks, and the stacked rows of every decode_many launch
+   of the album phase): atol = rtol = 2e-5, both errors against a float64
+   product, the kernel's no more than 2x the plain version's; median time
+   of 20 runs
    after 3 warm-ups, with CUDA events.  The decode's calls of the kernel
    are recorded by row count, and the run fails if a path launched it at
    a row count this phase did not check;
@@ -47,7 +48,22 @@ Phases, each printing its own line(s):
    180 s output: exactly equal;
 10. stream — decode_streaming on the card: 500-frame chunks but the last,
    Progress ending in "complete", the trimmed concatenation equal to
-   decode within 1e-6 and within 1 LSB of decode_i16.
+   decode within 1e-6 and within 1 LSB of decode_i16;
+11. album — the multi-track paths at the JAX package's album shapes
+   (bench.py:891-898, :958-), 4 x 15 s (one encode segment and one decode
+   chunk a track) and 4 x 120 s (two encode segments and four decode
+   chunks a track) of stereo int16, each track from its own seed:
+   Encoder.encode_many equals the per-file encode_pcm16 byte for byte,
+   Decoder.decode_many equals the per-file decode_i16 bit for bit, with one
+   kernel launch a group of single-chunk tracks and a chunk of each
+   multi-chunk track, as `launch_rows` of tests/test_torch_album.py
+   predicts from the frame counts; the walls of encode_many and
+   decode_many beside the serial loops, medians of 11 alternating pairs
+   after a warm-up; on the 120 s album, album.decode_playlist
+   (through decode_many) and album.export_playlist_to_flac, whose bytes
+   equal encode_flac_i16_with_level of the playlist and decode back to it;
+   and the CLI encoding the four 15 s WAVs in one main([...]) call, through
+   one encode_many, into the per-file containers.
 
 Every path counts the kernel's launches from 0 just before it runs and
 checks them just after.  Then one JSON line with the kernel table (its
@@ -73,7 +89,7 @@ import glc_tpu_torch  # noqa: F401  (turns TF32 off: full-f32 matmuls)
 from glc_tpu_torch import (
     Decoder, Encoder, load_encoded, save_encoded, serialize_encoded,
 )
-from glc_tpu_torch import cli, native
+from glc_tpu_torch import album, cli, native
 from glc_tpu_torch.codec.decoder import gapless_trim_bounds
 from glc_tpu_torch.codec.encoder import upload_geometry
 from glc_tpu_torch.codec.tables import chunk_size_for, get_codec_tables
@@ -91,11 +107,19 @@ from glc_tpu_torch.ops import kernels
 from glc_tpu_torch.ops.kernels import imdct_window, imdct_window_reference
 from glc_tpu_torch.parity import check_containers
 
+# the launch geometry of decode_many, kept beside the tests that hold the
+# decoder to it
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from test_torch_album import launch_rows  # noqa: E402
+
 SAMPLE_RATE = 44100
 SECONDS = 180
 KERNEL_TOL = 2e-5
 KERNEL_EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
 CLI_SECONDS = 10
+ALBUM_TRACKS = 4
+ALBUM_SECONDS = (15, 120)
+WALL_RUNS = 11
 FLAC_LEVEL = 5
 STREAM_TOL = 1e-6
 
@@ -110,7 +134,7 @@ def phase_device():
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name}; count {torch.cuda.device_count()}")
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -143,17 +167,27 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def frames_of(samples: int, channels: int = 2) -> int:
+    """The frame count of a track of `samples` interleaved samples."""
+    return upload_geometry(samples, channels, DEFAULT_CONFIG)[1]
+
+
 def path_rows(pcm: np.ndarray) -> list[int]:
     """The row counts the paths launch imdct_window with: every chunk's
     frames x 2 channels, at the decode and the stream chunk sizes, on the
-    180 s file and on the CLI's 10 s excerpt."""
+    180 s file, the CLI's 10 s excerpt and an album track of each length;
+    and every decode_many launch of the album phase."""
     cfg = DEFAULT_CONFIG
     rows = set()
-    for samples in (len(pcm), CLI_SECONDS * SAMPLE_RATE * 2):
-        F = upload_geometry(samples, 2, cfg)[1]
+    for samples in (len(pcm), CLI_SECONDS * SAMPLE_RATE * 2,
+                    *(s * SAMPLE_RATE * 2 for s in ALBUM_SECONDS)):
+        F = frames_of(samples)
         for max_chunk in (cfg.decode_chunk_frames, cfg.stream_chunk_frames):
             chunk = chunk_size_for(F, max_chunk)
             rows.update(2 * min(chunk, F - s) for s in range(0, F, chunk))
+    for seconds in ALBUM_SECONDS:
+        tracks = [(2, frames_of(seconds * SAMPLE_RATE * 2))] * ALBUM_TRACKS
+        rows.update(launch_rows(tracks, cfg.decode_chunk_frames))
     return sorted(rows, reverse=True)
 
 
@@ -207,12 +241,13 @@ def phase_kernel(tables, design: str, rows):
     return result
 
 
-def make_signal(seconds: int = SECONDS, rate: int = SAMPLE_RATE) -> np.ndarray:
-    """Interleaved int16 stereo from numpy.random.default_rng(0): tones of
-    six harmonics with a decaying envelope per 0.5 s note, 5 s of white
+def make_signal(seconds: int = SECONDS, rate: int = SAMPLE_RATE,
+                seed: int = 0) -> np.ndarray:
+    """Interleaved int16 stereo from numpy.random.default_rng(seed): tones
+    of six harmonics with a decaying envelope per 0.5 s note, 5 s of white
     noise from 60 s (it drives the raw-PCM fallback) and 1 s of silence
     from 120 s."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     T = seconds * rate
     t = np.arange(T) / rate
     note = (t // 0.5).astype(np.int64)
@@ -479,11 +514,163 @@ def phase_stream(encoded, out):
           f"== {want_chunks} chunks")
 
 
+def _wall(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _walls(batched, serial) -> tuple[float, float]:
+    """Medians of WALL_RUNS walls of two callables, in alternating order,
+    after one warm-up call of each."""
+    batched()
+    serial()
+    b, s = [], []
+    for r in range(WALL_RUNS):
+        for fn, out in ((batched, b), (serial, s))[:: 1 if r % 2 else -1]:
+            out.append(_wall(fn))
+    return float(np.median(b)), float(np.median(s))
+
+
+def album_rows(many) -> list[int]:
+    """The row counts decode_many launches the kernel with on `many`."""
+    return launch_rows([(2, ea.frame_set.num_frames) for ea in many],
+                       DEFAULT_CONFIG.decode_chunk_frames)
+
+
+def phase_album(seconds: int, smi: str):
+    """encode_many and decode_many of ALBUM_TRACKS tracks of `seconds`
+    against the per-file calls; returns (items, containers, decoded
+    tracks)."""
+    items = [(make_signal(seconds, seed=seed), 2)
+             for seed in range(1, ALBUM_TRACKS + 1)]
+    F = frames_of(len(items[0][0]))
+    plan = upload_geometry(len(items[0][0]), 2, DEFAULT_CONFIG)[3]
+    chunks = -(-F // chunk_size_for(F, DEFAULT_CONFIG.decode_chunk_frames))
+    if (len(plan), chunks) != ((1, 1) if seconds <= 30 else (2, 4)):
+        raise AssertionError(f"{seconds} s: {len(plan)} segments, {chunks} "
+                             f"chunks")
+    enc = Encoder(SAMPLE_RATE, device="cuda")
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    solo = [enc.encode_pcm16(x, c) for x, c in items]
+    many = enc.encode_many(items)
+    for i, (a, b) in enumerate(zip(many, solo, strict=True)):
+        if serialize_encoded(a) != serialize_encoded(b):
+            raise AssertionError(f"{seconds} s track {i}: encode_many != "
+                                 f"encode_pcm16")
+    want = [dec.decode_i16(ea) for ea in solo]
+    rows = album_rows(many)
+    imdct_window.launches = 0
+    outs = dec.decode_many(many)
+    launches = imdct_window.launches
+    if launches != len(rows):
+        raise AssertionError(f"decode_many launched imdct_window {launches} "
+                             f"times, the geometry says {len(rows)}")
+    for i, (o, w) in enumerate(zip(outs, want, strict=True)):
+        if not np.array_equal(o, w):
+            raise AssertionError(f"{seconds} s track {i}: decode_many != "
+                                 f"decode_i16 on the card")
+    t_em, t_es = _walls(lambda: enc.encode_many(items),
+                        lambda: [enc.encode_pcm16(x, c) for x, c in items])
+    t_dm, t_ds = _walls(lambda: dec.decode_many(many),
+                        lambda: [dec.decode_i16(ea) for ea in many])
+    print(f"[album] {ALBUM_TRACKS} x {seconds} s stereo ({smi}): encode_many "
+          f"== encode_pcm16 bytes, decode_many == decode_i16 bits; "
+          f"imdct_window launches {launches} at rows {rows}; medians of "
+          f"{WALL_RUNS}: encode_many {t_em:.4f} s vs serial {t_es:.4f} s "
+          f"({t_es / t_em:.2f}x), decode_many {t_dm:.4f} s vs serial "
+          f"{t_ds:.4f} s ({t_ds / t_dm:.2f}x)")
+    return items, many, outs
+
+
+def phase_album_export(many, outs):
+    """album.decode_playlist and album.export_playlist_to_flac of the
+    album's .glc files."""
+    cfg = DEFAULT_CONFIG
+    want = np.concatenate(outs)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, ea in enumerate(many):
+            paths.append(Path(tmp) / f"track{i}.glc")
+            save_encoded(ea, paths[-1])
+        rows = album_rows(many)
+        imdct_window.launches = 0
+        samples, rate, channels = album.decode_playlist(paths, device="cuda")
+        launches = imdct_window.launches
+        if launches != len(rows):
+            raise AssertionError(f"decode_playlist launched imdct_window "
+                                 f"{launches} times for {len(rows)}")
+        if (rate, channels) != (SAMPLE_RATE, 2) or not np.array_equal(
+                samples, want):
+            raise AssertionError("decode_playlist != the decode_many tracks")
+        flac = Path(tmp) / "album.flac"
+        album.export_playlist_to_flac(paths, flac, FLAC_LEVEL,
+                                      device="cuda")  # warm-up
+        imdct_window.launches = 0
+        t_exp = _wall(lambda: album.export_playlist_to_flac(
+            paths, flac, FLAC_LEVEL, device="cuda"))
+        exp_launches = imdct_window.launches
+        data = flac.read_bytes()
+    stream_chunks = sum(
+        -(-ea.frame_set.num_frames // chunk_size_for(
+            ea.frame_set.num_frames, cfg.stream_chunk_frames))
+        for ea in many)
+    if exp_launches != stream_chunks:
+        raise AssertionError(f"export_playlist_to_flac launched imdct_window "
+                             f"{exp_launches} times for {stream_chunks} "
+                             f"chunks")
+    if data != encode_flac_i16_with_level(want, SAMPLE_RATE, 2, FLAC_LEVEL):
+        raise AssertionError("album FLAC != whole-playlist FLAC bytes")
+    got, rate, channels, bps = decode_flac(data)
+    if (rate, channels, bps) != (SAMPLE_RATE, 2, 16) or not np.array_equal(
+            got, want.astype(np.int32)):
+        raise AssertionError("decode_flac does not give back the playlist")
+    audio_s = len(want) / 2 / SAMPLE_RATE
+    print(f"[album] decode_playlist of {len(many)} tracks == the decode_many "
+          f"tracks, imdct_window launches {launches}; "
+          f"export_playlist_to_flac of {audio_s:.0f} s: {t_exp:.3f} s "
+          f"({audio_s / t_exp:.1f}x realtime), {len(data)} bytes == "
+          f"whole-playlist FLAC, decode_flac gives back the playlist; "
+          f"imdct_window launches {exp_launches} == {stream_chunks} chunks")
+
+
+def phase_album_cli(items):
+    """glc_tpu_torch.cli.main on the album's tracks as WAV files, all in one
+    call: one encode_many, the per-file containers."""
+    calls = []
+    real = Encoder.encode_many
+
+    def counted(self, batch):
+        calls.append(len(batch))
+        return real(self, batch)
+
+    ref = Encoder(SAMPLE_RATE, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = []
+        for i, (x, c) in enumerate(items):
+            wavs.append(Path(tmp) / f"track{i}.wav")
+            write_wav_i16(wavs[-1], x, SAMPLE_RATE, c)
+        Encoder.encode_many = counted
+        try:
+            rc = cli.main([str(w) for w in wavs])
+        finally:
+            Encoder.encode_many = real
+        if rc != 0 or calls != [len(items)]:
+            raise AssertionError(f"CLI exit code {rc}, encode_many calls "
+                                 f"{calls}")
+        for w, (x, c) in zip(wavs, items, strict=True):
+            got = serialize_encoded(load_encoded(w.with_suffix(".glc")))
+            if got != serialize_encoded(ref.encode_pcm16(x, c)):
+                raise AssertionError(f"CLI {w.name} != encode_pcm16")
+    print(f"[album] cli.main on {len(items)} WAVs: exit code 0, one "
+          f"encode_many of {calls[0]} tracks, every .glc == encode_pcm16")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    name = phase_device()
+    name, smi = phase_device()
     design = phase_build()
     phase_native()
     tables = get_codec_tables(1024, 2048, SAMPLE_RATE, "cuda")
@@ -498,6 +685,10 @@ def main() -> int:
     phase_cli(pcm)
     phase_flac_math(out)
     phase_stream(encoded, out)
+    short = phase_album(ALBUM_SECONDS[0], smi)
+    _items, many, outs = phase_album(ALBUM_SECONDS[1], smi)
+    phase_album_export(many, outs)
+    phase_album_cli(short[0])
     unchecked = LAUNCHED_ROWS - set(kern)
     if not LAUNCHED_ROWS or unchecked:
         raise AssertionError(f"imdct_window launched at rows "
@@ -516,6 +707,7 @@ def main() -> int:
         "max_abs_err": max(d for d, _m, _p in kern.values()),
         "ms": ms,
         "plain_ms": plain_ms,
+        "rows_checked": sorted(kern, reverse=True),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

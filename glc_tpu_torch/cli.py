@@ -10,8 +10,8 @@ Decoding writes FLAC by default (`Decoder.decode_i16_stream` feeding
 `encode_flac_i16_streaming`), or WAV with ``--wav``.  Not ported yet, and
 refused with exit code 2 instead of falling through: playback (``-p``).
 With no arguments the usage is printed (the JAX package would try its
-GUI).  Files are encoded one after another; the JAX CLI batches them,
-which changes only when its "Saved" lines print.
+GUI).  Several input files are loaded first and encoded in batches through
+`Encoder.encode_many` (`_encode_jobs`), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -54,10 +54,11 @@ def print_usage() -> None:
 
 
 def encode_file(input_path: Path) -> None:
-    """main.rs:20-52 — load → encode → save, with the reference's printed
-    lines.  16-bit sources (WAV or FLAC) take the exact int16 path."""
+    """main.rs:20-52 — the per-file encode API (load → encode → save, with
+    the reference's printed lines).  16-bit sources (WAV or FLAC) take the
+    exact int16 path.  The CLI's multi-file path batches through
+    `_encode_jobs` instead; both share `_save_and_report`."""
     from .codec.encoder import Encoder
-    from .container.bincode import save_encoded
     from .io.audio import load_audio_for_encode
 
     print(f"Loading: {input_path.name!r}")
@@ -72,13 +73,7 @@ def encode_file(input_path: Path) -> None:
         encoded = encoder.encode_pcm16(samples, channels)
     else:
         encoded = encoder.encode(samples, channels)
-    output_path = input_path.with_suffix(".glc")
-    save_encoded(encoded, output_path)
-    input_size = input_path.stat().st_size
-    output_size = output_path.stat().st_size
-    ratio = output_size / input_size * 100.0
-    print(f"Saved: {output_path.name!r} ({output_size} bytes, "
-          f"{ratio:.1f}% of original)")
+    _save_and_report(input_path, encoded)
 
 
 def decode_file(input_path: Path, output_format: str, flac_level: int) -> None:
@@ -184,9 +179,81 @@ def _main_decode(args: List[str]) -> int:
     return 1 if has_errors else 0
 
 
-def _main_encode(args: List[str]) -> int:
-    """main.rs:545-583 — same checks, messages and exit codes."""
+# Flush the pending encode batch whenever this much decoded PCM is resident
+# (glc_tpu/cli.py:229-232): a 100-track album must not hold every track's
+# samples in host memory at once.
+_ENCODE_BATCH_BYTES = 512 << 20
+
+
+def _save_and_report(input_path: Path, encoded) -> None:
+    """The save and 'Saved:' line of encode_file (main.rs:38-51)."""
+    from .container.bincode import save_encoded
+
+    output_path = input_path.with_suffix(".glc")
+    save_encoded(encoded, output_path)
+    input_size = input_path.stat().st_size
+    output_size = output_path.stat().st_size
+    ratio = output_size / input_size * 100.0
+    print(f"Saved: {output_path.name!r} ({output_size} bytes, "
+          f"{ratio:.1f}% of original)")
+
+
+def _encode_jobs(jobs) -> bool:
+    """Encode and save loaded (path, samples, rate, channels) jobs, the
+    tracks of each rate in one `encode_many` call; returns True if any
+    failed.  A failed batch is reported and its files are encoded one by
+    one on the same device, so one bad file fails alone, as in the
+    reference's serial loop (glc_tpu/cli.py:248-294)."""
+    import numpy as np
+
+    from .codec.encoder import Encoder
+
     has_errors = False
+    by_rate: dict = {}
+    for j, (_path, _samples, rate, _ch) in enumerate(jobs):
+        by_rate.setdefault(rate, []).append(j)
+    encoded_all = [None] * len(jobs)
+    for rate, idxs in by_rate.items():
+        enc = Encoder(rate)
+        try:
+            outs = enc.encode_many([(jobs[j][1], jobs[j][3]) for j in idxs])
+            for j, ea in zip(idxs, outs):
+                encoded_all[j] = ea
+        except Exception as e:
+            print(f"Warning: batched encode failed ({e}); "
+                  f"retrying files serially", file=sys.stderr)
+            for j in idxs:
+                _path, samples, _rate, ch = jobs[j]
+                try:
+                    if samples.dtype == np.int16:
+                        encoded_all[j] = enc.encode_pcm16(samples, ch)
+                    else:
+                        encoded_all[j] = enc.encode(samples, ch)
+                except Exception as e2:
+                    print(f"Error encoding file: {e2}", file=sys.stderr)
+                    has_errors = True
+
+    for j, (path, _samples, _rate, _ch) in enumerate(jobs):
+        if encoded_all[j] is None:
+            continue
+        try:
+            _save_and_report(path, encoded_all[j])
+        except Exception as e:
+            print(f"Error encoding file: {e}", file=sys.stderr)
+            has_errors = True
+    return has_errors
+
+
+def _main_encode(args: List[str]) -> int:
+    """main.rs:545-583 — same checks, messages and exit codes; the loaded
+    files are encoded in batches (`_encode_jobs`).  'Saved' lines print
+    after each flushed batch, in input order; resident PCM is bounded by
+    `_ENCODE_BATCH_BYTES`."""
+    from .io.audio import load_audio_for_encode
+
+    has_errors = False
+    jobs = []  # (path, samples, rate, channels)
+    pending_bytes = 0
     for a in args:
         path = Path(a)
         if not path.exists():
@@ -200,10 +267,23 @@ def _main_encode(args: List[str]) -> int:
             has_errors = True
             continue
         try:
-            encode_file(path)
+            print(f"Loading: {path.name!r}")
+            # 16-bit sources arrive as int16 and take the exact int16 path
+            # inside encode_many
+            samples, rate, channels, _is_pcm16 = load_audio_for_encode(path)
+            print(f"Encoding: {rate} Hz, {channels} channels, "
+                  f"{len(samples)} samples")
+            jobs.append((path, samples, rate, channels))
+            pending_bytes += samples.nbytes
         except Exception as e:
             print(f"Error encoding file: {e}", file=sys.stderr)
             has_errors = True
+        if pending_bytes >= _ENCODE_BATCH_BYTES:
+            has_errors |= _encode_jobs(jobs)
+            jobs, pending_bytes = [], 0
+
+    if jobs:
+        has_errors |= _encode_jobs(jobs)
     return 1 if has_errors else 0
 
 

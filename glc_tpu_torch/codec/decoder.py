@@ -1,10 +1,10 @@
 """GLC decoder: container → device IMDCT/window/overlap-add per chunk → trim.
 
 Port of ``glc_tpu/codec/decoder.py`` (``decode_streaming``,
-``decode_i16_stream`` with the single-track core of
-``_pipelined_i16_chunks``, ``decode_i16``, ``decode``, ``decoded_length``
-and ``gapless_trim_bounds``).  API mirrors the reference (reference
-src/codec.rs:571-768):
+``decode_i16_stream`` with ``_pipelined_i16_chunks``, ``decode_i16``,
+``decode_many``, ``decode``,
+``decoded_length``, ``gapless_trim_bounds`` and ``gapless_trim``).  API
+mirrors the reference (reference src/codec.rs:571-768):
 
     dec = Decoder(channels, sample_rate, device="cuda")
     for part in dec.decode_i16_stream(encoded):  # trimmed int16 chunks
@@ -12,6 +12,7 @@ src/codec.rs:571-768):
     pcm16 = dec.decode_i16(encoded)              # trimmed, interleaved int16
     rx = dec.decode_streaming(encoded, progress) # queue of AudioChunk (f32)
     samples = dec.decode(encoded)                # trimmed, interleaved f32
+    outs = dec.decode_many([ea1, ea2, ...])      # int16 a track, in order
 
 The frames are decoded in chunks of ``chunk_size_for(F,
 decode_chunk_frames)``; the overlap carry between chunks stays on the
@@ -25,6 +26,14 @@ There are two chunk loops, one per output type: `_pipelined_i16_chunks`
 `decode_streaming` (float32: `decode`).  On CUDA each chunk's download is
 queued into pinned memory with an event recorded after it; the host waits
 on that chunk's event only, with up to `_PIPELINE_DEPTH` chunks in flight.
+
+`decode_many` decodes several tracks at once (`ops.decode.decode_stacked`:
+their frames stacked back to back, one kernel launch on all their rows):
+each group of single-chunk tracks of one channel count and chunk size in
+one pass.  Multi-chunk tracks run through `_pipelined_i16_chunks` one
+after another, in one window of chunks.  The JAX package's segment-level
+batch of multi-chunk tracks (``segmented_batch``) is not ported: no
+measurement on the card has shown it ahead of the serial chunks.
 """
 
 from __future__ import annotations
@@ -39,8 +48,8 @@ import torch
 
 from ..config import CodecConfig, DEFAULT_CONFIG
 from ..container.schema import AudioChunk, EncodedAudio, FrameSet, Progress
-from ..ops.decode import blocks_from_frames, dense_q, overlap_add, to_i16
-from .device import resolve_device, upload
+from ..ops.decode import decode_stacked, dense_q, to_i16
+from .device import resolve_device, upload_concat
 from .tables import chunk_size_for, get_codec_tables
 
 ProgressSender = Callable[[Progress], None]
@@ -65,6 +74,22 @@ def gapless_trim_bounds(pre_len: int, gapless_info, channels: int,
     skip = delay if pre_len > delay else 0
     limit = min(gapless_info.original_length, pre_len - skip)
     return skip, limit
+
+
+def gapless_trim(all_samples: np.ndarray, gapless_info, channels: int,
+                 reference_compat: bool) -> np.ndarray:
+    """The trimmed stream of the pre-trim stream `all_samples` (a view)."""
+    skip, limit = gapless_trim_bounds(len(all_samples), gapless_info,
+                                      channels, reference_compat)
+    return all_samples[skip : skip + limit]
+
+
+def frame_offsets(fs: FrameSet):
+    """(pair_off, raw_off): the index of each frame's first pair and first
+    raw row in the FrameSet's arrays, with the totals appended."""
+    pair_off = np.concatenate([[0], np.cumsum(fs.nnz.sum(axis=1))])
+    raw_off = np.concatenate([[0], np.cumsum(fs.raw_mask)])
+    return pair_off, raw_off
 
 
 def chunk_pairs(fs: FrameSet, start: int, count: int, pair_start: int,
@@ -155,43 +180,62 @@ class Decoder:
         )
         return limit
 
+    def _decode_parts(self, parts, carries: torch.Tensor, last: bool):
+        """Decode the frames of `parts` stacked back to back in one pass
+        (`decode_stacked`, one kernel launch).  Each part is ``(fs, start,
+        valid, offsets)``: frames [start, start+valid) of a FrameSet with
+        `frame_offsets(fs)`; all parts have one channel count, and `last`
+        says they end their tracks.  `carries` [B, C, n] holds each part's
+        overlap carry.  Returns `decode_stacked`'s (rows, new carries)."""
+        cfg = self.config
+        n = cfg.n
+        dev = self.device
+        C = parts[0][0].channels
+        frame_size = parts[0][0].frame_size
+        pos_l, val_l, scale_l, idx_l, raw_l = [], [], [], [], []
+        counts = []
+        off = 0
+        for fs, start, valid, (pair_off, raw_off) in parts:
+            pos, vals = chunk_pairs(fs, start, valid, int(pair_off[start]), n)
+            pos_l.append(pos + off * C * n)
+            val_l.append(vals)
+            scale_l.append(fs.scales[start : start + valid])
+            raw_idx = np.flatnonzero(fs.raw_mask[start : start + valid])
+            r0 = int(raw_off[start])
+            idx_l.append(raw_idx + off)
+            raw_l.append(fs.raw_pcm[r0 : r0 + len(raw_idx)])
+            counts.append(valid)
+            off += valid
+
+        q = dense_q(upload_concat(pos_l, dev), upload_concat(val_l, dev),
+                    off, C, n)
+        rows = upload_concat(raw_l, dev)
+        if cfg.reference_compat:
+            # channel-major data read back interleaved (Q13)
+            rows = rows.view(-1, frame_size, C).transpose(1, 2)
+        else:
+            rows = rows.view(-1, C, frame_size)
+        return decode_stacked(
+            q, upload_concat(scale_l, dev), upload_concat(idx_l, dev), rows,
+            carries, counts, last,
+            self.tables, max_q=cfg.max_q,
+            window_raw=not cfg.reference_compat,  # fix Q4 in clean mode
+        )
+
     def _chunks(self, encoded: EncodedAudio, chunk: int):
         """Run the frames on the device in chunks of `chunk`, in order;
         yields (valid frames, hops [valid, C, n] f32).  The last chunk's
         hops carry one more row: the stream's overlap tail
         (codec.rs:722-732), so its download brings the tail along."""
-        cfg = self.config
-        n = cfg.n
-        dev = self.device
-        C = encoded.header.channels
         fs = encoded.frame_set
         F = fs.num_frames
-        frame_size = fs.frame_size
-        window_raw = not cfg.reference_compat  # fix Q4 in clean mode
-
-        pair_off = np.concatenate([[0], np.cumsum(fs.nnz.sum(axis=1))])
-        raw_off = np.concatenate([[0], np.cumsum(fs.raw_mask)])
-        carry = torch.zeros((C, n), dtype=torch.float32, device=dev)
+        offsets = frame_offsets(fs)
+        carry = torch.zeros((1, encoded.header.channels, self.config.n),
+                            dtype=torch.float32, device=self.device)
         for start in range(0, F, chunk):
             valid = min(chunk, F - start)
-            pos, vals = chunk_pairs(fs, start, valid, int(pair_off[start]), n)
-            q = dense_q(upload(pos, dev), upload(vals, dev), valid, C, n)
-            scales = upload(fs.scales[start : start + valid], dev)
-            raw_idx = np.flatnonzero(fs.raw_mask[start : start + valid])
-            r0 = int(raw_off[start])
-            rows = upload(fs.raw_pcm[r0 : r0 + len(raw_idx)], dev)
-            if cfg.reference_compat:
-                # channel-major data read back interleaved (Q13)
-                rows = rows.view(-1, frame_size, C).transpose(1, 2)
-            else:
-                rows = rows.view(-1, C, frame_size)
-            blocks = blocks_from_frames(
-                q, scales, upload(raw_idx, dev), rows, self.tables,
-                max_q=cfg.max_q, window_raw=window_raw,
-            )
-            hops, carry = overlap_add(blocks, carry)
-            if start + chunk >= F:
-                hops = torch.cat([hops, carry[None]])
+            hops, carry = self._decode_parts(
+                [(fs, start, valid, offsets)], carry, start + chunk >= F)
             yield valid, hops
 
     # --- int16: the stream and the whole-file decode (export path) ---
@@ -284,6 +328,93 @@ class Decoder:
         if not parts:
             return np.empty(0, np.int16)
         return np.concatenate(parts)
+
+    # --- int16, several tracks: the album decode ---
+
+    def decode_many(self, encoded_list) -> list:
+        """Decode several tracks to trimmed int16, one array a track in
+        input order (glc_tpu/codec/decoder.py:630-751; the reference's GUI
+        decodes an album one file after another, src/ui.rs:317-359).  Each
+        track uses its own header's channel count.
+
+        * Single-chunk tracks (F ≤ the chunk size of F) are grouped by
+          (channels, chunk size); each group is one pass of
+          `_decode_parts`: one upload of each input, one kernel launch on
+          the rows of every track, one download.  Every group is dispatched
+          before any is collected.
+        * Multi-chunk tracks run through `_pipelined_i16_chunks`, one track
+          after another in one window of chunks
+          (`_decode_streaming_pipelined`).
+        * Tracks with no frames go through `decode_i16`.
+
+        On the card each track equals its own `decode_i16` bit for bit (the
+        kernel computes each row alike at any row count).  On the CPU the
+        plain product rounds a product of ≤ 128 rows differently from a
+        larger one, so a batched track can differ from `decode_i16` by
+        1 LSB there.  Each result owns its memory.
+        """
+        cfg = self.config
+        n = cfg.n
+        results: list = [None] * len(encoded_list)
+        groups: dict = {}
+        multis: list = []
+        empties: list = []
+        for i, ea in enumerate(encoded_list):
+            C = ea.header.channels
+            F = ea.frame_set.num_frames
+            chunk = chunk_size_for(max(F, 1), cfg.decode_chunk_frames)
+            if F == 0:
+                empties.append((i, ea))
+            elif F > chunk:
+                multis.append((i, ea))
+            else:
+                groups.setdefault((C, chunk), []).append((i, ea))
+
+        handles = []
+        for (C, _chunk), recs in groups.items():
+            parts = [
+                (ea.frame_set, 0, ea.frame_set.num_frames,
+                 frame_offsets(ea.frame_set))
+                for _i, ea in recs
+            ]
+            carries = torch.zeros((len(recs), C, n), dtype=torch.float32,
+                                  device=self.device)
+            rows, _carries = self._decode_parts(parts, carries, True)
+            handles.append((recs, _Download(rows, out_i16=True)))
+
+        # the multi-chunk tracks run while the groups' downloads drain
+        if multis:
+            self._decode_streaming_pipelined(multis, results)
+
+        for i, ea in empties:
+            results[i] = self.decode_i16(ea)
+
+        for recs, download in handles:
+            out = download.wait()  # [Σ (F + 1), n, C]: hops and tail a track
+            o = 0
+            for i, ea in recs:
+                rows = ea.frame_set.num_frames + 1
+                flat = out[o : o + rows].reshape(-1)
+                o += rows
+                # copy: the trim is a view into the group's download
+                results[i] = gapless_trim(
+                    flat, ea.gapless_info, ea.header.channels,
+                    cfg.reference_compat,
+                ).copy()
+        return results
+
+    def _decode_streaming_pipelined(self, recs, results) -> None:
+        """Multi-chunk tracks (decoder.py:753-770): the
+        tracks of `recs` (``(index, EncodedAudio)``) one after another
+        through `_pipelined_i16_chunks`, with one window of chunks in flight
+        across track boundaries.  Each track equals its `decode_i16` bit for
+        bit (the same chunks)."""
+        parts: dict = {i: [] for i, _ea in recs}
+        for i, flat in self._pipelined_i16_chunks(recs):
+            parts[i].append(flat)
+        for i, _ea in recs:
+            results[i] = (np.concatenate(parts[i]) if parts[i]
+                          else np.empty(0, np.int16))
 
     # --- float32: the streaming decode (codec.rs:595-741) ---
 

@@ -1,18 +1,26 @@
 """GLC encoder: upload → device MDCT/mask/quantize per segment → container.
 
-Port of ``glc_tpu/codec/encoder.py`` (single track).  API mirrors the
-reference (reference src/codec.rs:396-566):
+Port of ``glc_tpu/codec/encoder.py``.  API mirrors the reference
+(reference src/codec.rs:396-566):
 
     enc = Encoder(sample_rate, device="cuda")
     encoded = enc.encode(samples, channels)     # interleaved float32
     encoded = enc.encode_pcm16(i16, channels)   # exact fast path for 16-bit
                                                 # sources (i16/2^15 == f32)
+    encodeds = enc.encode_many([(i16, 2), (f32, 1), ...])  # in input order
 
 The host uploads the interleaved signal once per file, from pinned memory;
 the deinterleave, padding and framing happen on the device.  Each segment
 of the plan (`upload_geometry`) is one batch of frames, and its download
 is the per-frame stats, exactly the kept pairs, and the raw rows of the
 frames that chose the raw-PCM fallback.
+
+`encode_many` encodes its tracks one after another.  Each segment waits
+for its own downloads (the pair count of ``masked_select`` and the stats),
+so grouping tracks on the host overlaps nothing on the device; and a
+stacked MDCT could let cuBLAS pick another kernel, move a coefficient by
+an ulp and flip a keep-gate decision (the hazard that made the JAX package
+map its batch with ``lax.map``).
 """
 
 from __future__ import annotations
@@ -179,6 +187,29 @@ class Encoder:
         device (exact in f32) after a half-size upload."""
         return self._encode(np.asarray(samples_i16, np.int16), channels,
                             pcm16=True)
+
+    def encode_many(self, items) -> list:
+        """Encode several tracks (glc_tpu/codec/encoder.py:468-905):
+        `items` is a sequence of (samples, channels); int16 arrays take the
+        exact `encode_pcm16` path, float arrays the `encode` path.  Other
+        integer arrays raise TypeError, and empty or unframeable inputs
+        ValueError, before anything is encoded.  Returns the containers in
+        input order, each the per-file encode's (the module docstring says
+        why the tracks are not batched)."""
+        prepped = []
+        for samples, channels in items:
+            samples = np.asarray(samples)
+            pcm16 = samples.dtype == np.int16
+            if not pcm16 and np.issubdtype(samples.dtype, np.integer):
+                raise TypeError("encode_many expects float PCM or int16 arrays")
+            if not pcm16:
+                samples = samples.astype(np.float32, copy=False)
+            prepped.append((samples, int(channels), pcm16))
+        for samples, channels, _pcm16 in prepped:
+            if len(samples) == 0:
+                raise ValueError("cannot encode empty input")
+            frame_plan(len(samples), channels, self.config)
+        return [self._encode(s, c, pcm16=p) for s, c, p in prepped]
 
     def _encode(self, samples: np.ndarray, channels: int, *,
                 pcm16: bool) -> EncodedAudio:

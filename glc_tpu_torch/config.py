@@ -9,10 +9,12 @@ Mirrors the compile-time constants of the reference implementation
 
 Fields the port carries but never reads: ``compact_mode``,
 ``compact_bb_mult`` (the port compacts pairs with one ``masked_select``),
-``segmented_batch`` (no multi-track paths yet) and ``use_pallas`` (on CUDA
-the hand-written IMDCT+window kernel is the only path).  The comments on
-the fields below are the JAX package's; the timings they quote were taken
-on a TPU v5e and say nothing about the port.
+``segmented_batch`` (`Encoder.encode_many` runs its tracks one after
+another and `Decoder.decode_many` its multi-chunk tracks, whatever the
+field says) and ``use_pallas`` (on CUDA the hand-written IMDCT+window
+kernel is the only path).  The comments on the fields below are the JAX
+package's; the timings they quote were taken on a TPU v5e and say nothing
+about the port.
 """
 
 from dataclasses import dataclass

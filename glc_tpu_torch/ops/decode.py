@@ -1,13 +1,22 @@
 """Device-side decode: dequantize → IMDCT+window → raw select → overlap-add.
 
 Port of ``glc_tpu/ops/decode.py`` (``blocks_from_frames``,
-``decode_chunk_device`` and the epilogue of ``_decode_packed_body``).  The
-IMDCT+window runs in the hand-written kernel of ``ops/kernels.py``.
-Overlap-add with 50% hop is a shifted add,
+``decode_chunk_device``, the epilogue of ``_decode_packed_body`` and the
+batch program ``decode_chunks_packed_batch_device``).  The IMDCT+window
+runs in the hand-written kernel of ``ops/kernels.py``.  Overlap-add with
+50% hop is a shifted add,
 
     hop[f] = first_half(block[f]) + second_half(block[f-1]),
 
-with one [C, n] carry between chunks.
+with one [C, n] carry a track between chunks.
+
+Several tracks decode in one pass with their frames stacked back to back
+(`decode_stacked`): every step but the overlap-add works row by row, so the
+IMDCT+window of the whole batch is one kernel launch on all its rows, and
+the overlap-add restarts from each track's own carry at the track's first
+frame.  Nothing is padded.  The kernel computes each row alike at any row
+count, so on the card a track's hops do not depend on the batch it rode in
+(the JAX package gets that guarantee from ``lax.map``).
 """
 
 from __future__ import annotations
@@ -63,14 +72,57 @@ def blocks_from_frames(
     return blocks
 
 
-def overlap_add(blocks: torch.Tensor, carry: torch.Tensor):
-    """Shifted overlap-add of blocks [K, C, 2n] after `carry` [C, n]
-    (codec.rs:688-705).  Returns (hops [K, C, n], new carry [C, n])."""
+def overlap_add(blocks: torch.Tensor, carries: torch.Tensor, counts):
+    """Shifted overlap-add (codec.rs:688-705) of the frames of B tracks
+    stacked back to back in blocks [Σ counts, C, 2n], `counts[b]` (≥ 1)
+    frames of track b, each track after its own carry in carries [B, C, n].
+    Returns (hops [Σ counts, C, n], new carries [B, C, n])."""
     n = blocks.shape[-1] // 2
     first = blocks[..., :n]
     second = blocks[..., n:]
-    prev = torch.cat([carry[None], second[:-1]], dim=0)
-    return first + prev, second[-1].clone()
+    prev, ends, o = [], [], 0
+    for b, count in enumerate(counts):
+        prev += [carries[b : b + 1], second[o : o + count - 1]]
+        o += count
+        ends.append(second[o - 1 : o])
+    return first + torch.cat(prev), torch.cat(ends)
+
+
+def decode_stacked(
+    q: torch.Tensor,         # [N, C, n] int16, N = Σ counts
+    scales: torch.Tensor,    # [N, C] f32
+    raw_idx: torch.Tensor,   # [R] int64 — stacked frames that hold raw PCM
+    raw_rows: torch.Tensor,  # [R, C, frame_size] int16
+    carries: torch.Tensor,   # [B, C, n] f32
+    counts,                  # B frame counts, each ≥ 1
+    last: bool,              # this pass ends every track
+    tables,
+    *,
+    max_q: float = 32768.0,
+    window_raw: bool = False,
+):
+    """Decode the frames of B tracks stacked back to back: dequantize,
+    IMDCT+window (one `imdct_window` launch on all N·C rows), raw select,
+    overlap-add from each track's carry.
+
+    With zero carries and every track ending, this is the counterpart of
+    the JAX package's ``decode_chunks_packed_batch_device`` (B single-chunk
+    tracks); with B = 1 and the carry chained, of ``decode_chunk_device``
+    (one chunk of one track).
+
+    Returns (rows [N (+ B if last), C, n] f32 — each track's hops, each
+    followed by its tail, the new carry, if `last`; new carries [B, C, n]).
+    """
+    blocks = blocks_from_frames(q, scales, raw_idx, raw_rows, tables,
+                                max_q=max_q, window_raw=window_raw)
+    hops, new = overlap_add(blocks, carries, counts)
+    if not last:
+        return hops, new
+    pieces, o = [], 0
+    for b, count in enumerate(counts):
+        pieces += [hops[o : o + count], new[b : b + 1]]
+        o += count
+    return torch.cat(pieces), new
 
 
 def to_i16(x: torch.Tensor) -> torch.Tensor:

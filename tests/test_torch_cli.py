@@ -1,7 +1,8 @@
 """The port's `glc` CLI (python -m glc_tpu_torch): WAV and FLAC inputs to
-.glc, .glc to FLAC (the default, at any --flac-level) and to WAV, the lines
-it prints beside the JAX package's CLI, and the refusal of what is not
-ported yet (playback)."""
+.glc, several inputs batched through `Encoder.encode_many`, .glc to FLAC
+(the default, at any --flac-level) and to WAV, the lines it prints beside
+the JAX package's CLI, and the refusal of what is not ported yet
+(playback)."""
 
 import os
 import subprocess
@@ -18,6 +19,7 @@ from glc_tpu_torch import Decoder, Encoder, load_encoded, serialize_encoded
 from glc_tpu_torch.flac.decoder import decode_flac
 from glc_tpu_torch.flac.encoder import encode_flac_i16_with_level
 from glc_tpu_torch.io.wav import read_wav_pcm16, write_wav_i16
+from glc_tpu_torch.parity import check_containers
 
 REPO = Path(__file__).resolve().parent.parent
 RATE = 44100
@@ -146,6 +148,106 @@ def test_prints_the_same_lines_as_the_jax_cli(tmp_path, capsys):
         lines[name] = capsys.readouterr().out.splitlines()
     assert lines["torch"] == lines["jax"]
     assert len(lines["torch"]) == 7
+
+
+def _album(d, specs):
+    """Write one source file a spec (name, seconds, channels, rate) into
+    `d`: WAV, or 16-bit FLAC for a .flac name; returns the paths and the
+    int16 samples."""
+    d.mkdir()
+    paths, pcms = [], []
+    for name, seconds, channels, rate in specs:
+        pcm = _pcm(seconds, channels)
+        if name.endswith(".flac"):
+            (d / name).write_bytes(
+                encode_flac_i16_with_level(pcm, rate, channels, 5))
+        else:
+            write_wav_i16(d / name, pcm, rate, channels)
+        paths.append(d / name)
+        pcms.append(pcm)
+    return paths, pcms
+
+
+ALBUM = [("one.wav", 0.4, 2, RATE), ("two.flac", 0.7, 2, RATE),
+         ("three.wav", 0.3, 1, RATE), ("four.wav", 0.5, 2, 48000)]
+
+
+@pytest.fixture
+def encode_many_calls(monkeypatch):
+    """The track counts of each `Encoder.encode_many` call."""
+    from glc_tpu_torch.codec.encoder import Encoder as TorchEncoder
+
+    calls = []
+    real = TorchEncoder.encode_many
+
+    def spy(self, items):
+        calls.append(len(items))
+        return real(self, items)
+
+    monkeypatch.setattr(TorchEncoder, "encode_many", spy)
+    return calls
+
+
+def test_multi_file_encode_is_batched(tmp_path, capsys, encode_many_calls):
+    """Four files in one call (WAV and FLAC, stereo and mono, two rates):
+    one `encode_many` a rate, .glc files equal to the per-file encodes byte
+    for byte and to the JAX CLI's within the pair contract (a ±1 flip moves
+    a byte, not the size), the same stdout as the JAX CLI with the "Saved"
+    lines in input order."""
+    out = {}
+    for name, cli in (("jax", jax_cli), ("torch", torch_cli)):
+        paths, pcms = _album(tmp_path / name, ALBUM)
+        assert cli.main([str(p) for p in paths]) == 0
+        out[name] = capsys.readouterr().out.splitlines()
+    assert encode_many_calls == [3, 1]
+    assert out["torch"] == out["jax"]
+    saved = [line for line in out["torch"] if line.startswith("Saved: ")]
+    assert [line.split("'")[1] for line in saved] == [
+        "one.glc", "two.glc", "three.glc", "four.glc"]
+    for (name, _s, channels, rate), pcm in zip(ALBUM, pcms):
+        glc = Path(name).with_suffix(".glc")
+        got = serialize_encoded(load_encoded(tmp_path / "torch" / glc))
+        want = Encoder(rate, device="cpu").encode_pcm16(pcm, channels)
+        assert got == serialize_encoded(want), name
+        check_containers(load_encoded(tmp_path / "torch" / glc),
+                         load_encoded(tmp_path / "jax" / glc))
+
+
+def test_encode_batches_flush_at_the_byte_bound(tmp_path, capsys,
+                                                monkeypatch,
+                                                encode_many_calls):
+    """With the resident-PCM bound below one file, every file is its own
+    batch, and its "Saved" line comes before the next file loads."""
+    monkeypatch.setattr(torch_cli, "_ENCODE_BATCH_BYTES", 1)
+    paths, _pcms = _album(tmp_path / "d", ALBUM[:3])
+    assert torch_cli.main([str(p) for p in paths]) == 0
+    assert encode_many_calls == [1, 1, 1]
+    kinds = [line.split(":")[0]
+             for line in capsys.readouterr().out.splitlines()]
+    assert kinds == ["Loading", "Encoding", "Saved"] * 3
+
+
+def test_failed_batch_retries_each_file(tmp_path, capsys, monkeypatch):
+    """A batch that raises prints the JAX CLI's warning and encodes each
+    file on its own, on the same device: the same .glc bytes."""
+    from glc_tpu_torch.codec.encoder import Encoder as TorchEncoder
+
+    def broken(self, items):
+        raise RuntimeError("device lost")
+
+    paths, pcms = _album(tmp_path / "d", ALBUM[:3])
+    monkeypatch.setattr(TorchEncoder, "encode_many", broken)
+    assert torch_cli.main([str(p) for p in paths]) == 0
+    captured = capsys.readouterr()
+    assert captured.err.splitlines() == [
+        "Warning: batched encode failed (device lost); retrying files "
+        "serially"]
+    assert sum(line.startswith("Saved: ")
+               for line in captured.out.splitlines()) == 3
+    for (name, _s, channels, rate), pcm in zip(ALBUM, pcms):
+        want = Encoder(rate, device="cpu").encode_pcm16(pcm, channels)
+        assert (serialize_encoded(load_encoded(tmp_path / "d" / Path(
+            name).with_suffix(".glc"))) == serialize_encoded(want)), name
 
 
 def test_usage_errors_match(tmp_path, capsys):
