@@ -14,14 +14,18 @@ Phases, each printing its own line(s):
    PyTorch version at every edge of its 128-row tile (1, 63, 64, 65, 127,
    128, 129), at a ragged 1000, and at every row count the paths below
    launch it with (`path_rows`: each chunk's frames x 2 channels at the
-   decode and the stream chunk sizes, on the 180 s file, the 10 s excerpt
-   and the album tracks, and the stacked rows of every decode_many launch
-   of the album phase): atol = rtol = 2e-5, both errors against a float64
-   product, the kernel's no more than 2x the plain version's; median time
-   of 20 runs
-   after 3 warm-ups, with CUDA events.  The decode's calls of the kernel
-   are recorded by row count, and the run fails if a path launched it at
-   a row count this phase did not check;
+   decode and the stream chunk sizes, on the 180 s file, the 10 s excerpt,
+   the stereo album tracks and the playback phase's mono track, and the
+   stacked rows of every decode_many launch of the album phase): atol =
+   rtol = 2e-5, both errors against a float64 product, the kernel's no
+   more than 2x the plain version's; median time of 20 runs after 3
+   warm-ups, with CUDA events, of the kernel, the plain version and the
+   one library call that computes the same function (torch.matmul at full
+   f32 against the table with norm x window folded into its columns); and
+   the bound (`kernel_bound`: the larger of the product's FLOPs at the
+   TF32 peak and the bytes at the HBM rate).  The decode's calls of the
+   kernel are recorded by row count, and the run fails if a path launched
+   it at a row count this phase did not check;
 4. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
    envelopes, 5 s of white noise, 1 s of silence) through
    Encoder.encode_pcm16 → save_encoded → load_encoded →
@@ -63,22 +67,46 @@ Phases, each printing its own line(s):
    (through decode_many) and album.export_playlist_to_flac, whose bytes
    equal encode_flac_i16_with_level of the playlist and decode back to it;
    and the CLI encoding the four 15 s WAVs in one main([...]) call, through
-   one encode_many, into the per-file containers.
+   one encode_many, into the per-file containers;
+12. playback — playback.play_files_gapless of the 120 s album's .glc files
+   into a capture sink: one sink, the stream equal to the tracks'
+   decode_streaming chunks bit for bit, each track's trimmed part within
+   1e-6 of decode and 1 LSB of decode_i16, one launch a chunk; the time to
+   the first sink append and the feed rate (audio seconds / wall seconds
+   to the last append), medians of 5; a mono 15 s track appended (the sink
+   restarts once); a sink that stops after its first chunk (one chunk
+   written, no producer thread left, torch.cuda.synchronize() passes); and
+   cli.main(["-p", ...]) and (["-p", "--ffplay", ...]) against a stub
+   ffplay written into a temporary directory, whose bytes are the stream;
+13. controller — CodecController on two 15 s WAVs: encode_selected equals
+   encode_pcm16 byte for byte, play_gapless feeds the decode_streaming
+   stream, export_playlist equals album.export_playlist_to_flac;
+14. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
+   container: each torch.profiler trace holds the decode_i16 span and one
+   imdct_window kernel event a chunk; the traced and untraced walls; and
+   one play_files_gapless of the 480 s album under profiling.trace: the
+   device's busy time (kernels, copies, memsets) and idle share inside
+   the call's span.
 
 Every path counts the kernel's launches from 0 just before it runs and
 checks them just after.  Then one JSON line with the kernel table (its
-launch count is the main path's), and as the last line
+launch count is the main path's; its times, library time and bound at
+B = 2816), and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero;
 without a CUDA device the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -89,12 +117,13 @@ import glc_tpu_torch  # noqa: F401  (turns TF32 off: full-f32 matmuls)
 from glc_tpu_torch import (
     Decoder, Encoder, load_encoded, save_encoded, serialize_encoded,
 )
-from glc_tpu_torch import album, cli, native
-from glc_tpu_torch.codec.decoder import gapless_trim_bounds
+from glc_tpu_torch import album, cli, native, playback, profiling
+from glc_tpu_torch.codec.decoder import PRODUCER_NAME, gapless_trim_bounds
 from glc_tpu_torch.codec.encoder import upload_geometry
 from glc_tpu_torch.codec.tables import chunk_size_for, get_codec_tables
 from glc_tpu_torch.config import DEFAULT_CONFIG
 from glc_tpu_torch.container.schema import ProgressKind
+from glc_tpu_torch.controller import CodecController
 from glc_tpu_torch.flac import bitpack
 from glc_tpu_torch.flac.decoder import decode_flac
 from glc_tpu_torch.flac.encoder import (
@@ -122,6 +151,12 @@ ALBUM_SECONDS = (15, 120)
 WALL_RUNS = 11
 FLAC_LEVEL = 5
 STREAM_TOL = 1e-6
+MONO_SECONDS = 15      # the mono track the playback phase appends
+FEED_RUNS = 5          # timed playbacks of the 480 s playlist
+# H100 SXM peaks (NVIDIA's data sheet, dense): TF32 on the tensor cores, the
+# unit that bounds an f32-accurate product on the card, and HBM3
+PEAK_TF32_FLOPS = 495e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def phase_device():
@@ -172,19 +207,29 @@ def frames_of(samples: int, channels: int = 2) -> int:
     return upload_geometry(samples, channels, DEFAULT_CONFIG)[1]
 
 
+def decode_chunks(eas, max_chunk: int) -> int:
+    """The chunks (kernel launches) of a track-by-track decode of `eas`."""
+    return sum(-(-ea.frame_set.num_frames // chunk_size_for(
+        ea.frame_set.num_frames, max_chunk)) for ea in eas)
+
+
 def path_rows(pcm: np.ndarray) -> list[int]:
     """The row counts the paths launch imdct_window with: every chunk's
-    frames x 2 channels, at the decode and the stream chunk sizes, on the
-    180 s file, the CLI's 10 s excerpt and an album track of each length;
-    and every decode_many launch of the album phase."""
+    frames x its track's channels, at the decode and the stream chunk
+    sizes, on the 180 s file, the CLI's 10 s excerpt, a stereo album track
+    of each length and the playback phase's mono track; and every
+    decode_many launch of the album phase."""
     cfg = DEFAULT_CONFIG
     rows = set()
-    for samples in (len(pcm), CLI_SECONDS * SAMPLE_RATE * 2,
-                    *(s * SAMPLE_RATE * 2 for s in ALBUM_SECONDS)):
-        F = frames_of(samples)
+    tracks = [(len(pcm), 2), (CLI_SECONDS * SAMPLE_RATE * 2, 2),
+              *((s * SAMPLE_RATE * 2, 2) for s in ALBUM_SECONDS),
+              (MONO_SECONDS * SAMPLE_RATE, 1)]
+    for samples, channels in tracks:
+        F = frames_of(samples, channels)
         for max_chunk in (cfg.decode_chunk_frames, cfg.stream_chunk_frames):
             chunk = chunk_size_for(F, max_chunk)
-            rows.update(2 * min(chunk, F - s) for s in range(0, F, chunk))
+            rows.update(channels * min(chunk, F - s)
+                        for s in range(0, F, chunk))
     for seconds in ALBUM_SECONDS:
         tracks = [(2, frames_of(seconds * SAMPLE_RATE * 2))] * ALBUM_TRACKS
         rows.update(launch_rows(tracks, cfg.decode_chunk_frames))
@@ -207,11 +252,30 @@ def record_launch_rows():
     decode_ops.imdct_window = recorded
 
 
+def kernel_bound(B: int, n: int) -> tuple[float, str]:
+    """The least time (ms) the card could take for imdct_window on B rows,
+    and what sets it: the FLOPs of the one f32 product (2·B·n·2n) at the
+    TF32 tensor-core peak against the bytes of each input read once
+    (coeffs, table, window) and the output written once, at the HBM rate."""
+    flops = 2.0 * B * n * 2 * n
+    nbytes = 4.0 * (B * n + n * 2 * n + 2 * n + B * 2 * n)
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
 def phase_kernel(tables, design: str, rows):
+    """Kernel against plain at each row count; also the one library call
+    that computes the same function (a full-f32 torch.matmul against the
+    table with norm x window folded into its columns) and the bound.
+    Returns {B: (max|kernel-plain|, ms, plain ms, library ms, bound ms,
+    bound by)}."""
     n = tables.n
     rng = np.random.default_rng(1)
     table64 = tables.cos_table.double()
     window64 = tables.window.double()
+    folded = tables.cos_table * (tables.norm_value * tables.window)
     result = {}
     for B in rows:
         coeffs = torch.from_numpy(
@@ -220,10 +284,12 @@ def phase_kernel(tables, design: str, rows):
         args = (coeffs, tables.cos_table, tables.window, tables.norm_value)
         out = imdct_window(*args)
         ref = imdct_window_reference(*args)
+        lib = torch.matmul(coeffs, folded)
         torch.cuda.synchronize()
         exact = ((coeffs.double() @ table64) * tables.norm_value) * window64
         err_kernel = (out.double() - exact).abs().max().item()
         err_plain = (ref.double() - exact).abs().max().item()
+        err_lib = (lib.double() - exact).abs().max().item()
         diff = (out - ref).abs().max().item()
         torch.testing.assert_close(out, ref, atol=KERNEL_TOL, rtol=KERNEL_TOL)
         if err_kernel > 2 * err_plain:
@@ -232,28 +298,32 @@ def phase_kernel(tables, design: str, rows):
                 f"plain version's {err_plain:.3e}")
         ms = _median_ms(lambda: imdct_window(*args))
         plain_ms = _median_ms(lambda: imdct_window_reference(*args))
+        lib_ms = _median_ms(lambda: torch.matmul(coeffs, folded))
+        bound_ms, bound_by = kernel_bound(B, n)
         print(f"[kernel] imdct_window ({design}) B={B}: "
               f"max|kernel-plain| {diff:.3e} "
               f"(tol {KERNEL_TOL}); vs float64: kernel {err_kernel:.3e}, "
-              f"plain {err_plain:.3e}; median of 20: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        result[B] = (diff, ms, plain_ms)
+              f"plain {err_plain:.3e}, library {err_lib:.3e}; median of 20: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"(torch.matmul, folded table) {lib_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        result[B] = (diff, ms, plain_ms, lib_ms, bound_ms, bound_by)
     return result
 
 
 def make_signal(seconds: int = SECONDS, rate: int = SAMPLE_RATE,
-                seed: int = 0) -> np.ndarray:
-    """Interleaved int16 stereo from numpy.random.default_rng(seed): tones
-    of six harmonics with a decaying envelope per 0.5 s note, 5 s of white
-    noise from 60 s (it drives the raw-PCM fallback) and 1 s of silence
-    from 120 s."""
+                seed: int = 0, channels: int = 2) -> np.ndarray:
+    """Interleaved int16 (stereo by default) from
+    numpy.random.default_rng(seed): tones of six harmonics with a decaying
+    envelope per 0.5 s note, 5 s of white noise from 60 s (it drives the
+    raw-PCM fallback) and 1 s of silence from 120 s."""
     rng = np.random.default_rng(seed)
     T = seconds * rate
     t = np.arange(T) / rate
     note = (t // 0.5).astype(np.int64)
     env = np.exp(-4.0 * (t % 0.5))
-    x = np.zeros((T, 2))
-    for c in range(2):
+    x = np.zeros((T, channels))
+    for c in range(channels):
         f0 = rng.uniform(110.0, 880.0, size=note[-1] + 1)[note]
         for h in range(1, 7):
             x[:, c] += (0.3 / h) * np.sin(2 * np.pi * h * f0 * t)
@@ -291,7 +361,7 @@ def phase_main(pcm: np.ndarray):
 
     F = encoded.frame_set.num_frames
     _T, F_plan, _pad, plan, _need = upload_geometry(len(pcm), 2, cfg)
-    chunks = -(-F // chunk_size_for(F, cfg.decode_chunk_frames))
+    chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
     raw_frames = int(encoded.frame_set.raw_mask.sum())
     if len(out) != len(pcm):
         raise AssertionError(f"decoded {len(out)} samples, input {len(pcm)}")
@@ -374,8 +444,7 @@ def phase_export(encoded, out):
     t_exp = time.perf_counter() - t0
     launches = imdct_window.launches
 
-    F = encoded.frame_set.num_frames
-    chunks = -(-F // chunk_size_for(F, cfg.stream_chunk_frames))
+    chunks = decode_chunks([encoded], cfg.stream_chunk_frames)
     if launches != chunks:
         raise AssertionError(
             f"export launched imdct_window {launches} times for {chunks} "
@@ -434,8 +503,7 @@ def phase_cli(pcm: np.ndarray):
         if serialize_encoded(again) != serialize_encoded(ref):
             raise AssertionError("FLAC input container != encode_pcm16 of "
                                  "its samples")
-        F = encoded.frame_set.num_frames
-        chunks = -(-F // chunk_size_for(F, cfg.stream_chunk_frames))
+        chunks = decode_chunks([encoded], cfg.stream_chunk_frames)
         if launches != chunks:
             raise AssertionError(f"the CLI decode launched imdct_window "
                                  f"{launches} times for {chunks} chunks")
@@ -482,7 +550,7 @@ def phase_stream(encoded, out):
     t_stream = time.perf_counter() - t0
     launches = imdct_window.launches
     F = encoded.frame_set.num_frames
-    want_chunks = -(-F // chunk_size_for(F, cfg.decode_chunk_frames))
+    want_chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
     if launches != want_chunks:
         raise AssertionError(f"decode_streaming launched imdct_window "
                              f"{launches} times for {want_chunks} chunks")
@@ -611,10 +679,7 @@ def phase_album_export(many, outs):
             paths, flac, FLAC_LEVEL, device="cuda"))
         exp_launches = imdct_window.launches
         data = flac.read_bytes()
-    stream_chunks = sum(
-        -(-ea.frame_set.num_frames // chunk_size_for(
-            ea.frame_set.num_frames, cfg.stream_chunk_frames))
-        for ea in many)
+    stream_chunks = decode_chunks(many, cfg.stream_chunk_frames)
     if exp_launches != stream_chunks:
         raise AssertionError(f"export_playlist_to_flac launched imdct_window "
                              f"{exp_launches} times for {stream_chunks} "
@@ -666,6 +731,399 @@ def phase_album_cli(items):
           f"encode_many of {calls[0]} tracks, every .glc == encode_pcm16")
 
 
+class CaptureSink:
+    """A playback sink that keeps every chunk it is given, and the
+    perf_counter time of each append."""
+
+    def __init__(self, sample_rate: int, channels: int, log: list):
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self.parts: list = []
+        self.times: list = []
+        self.closed = False
+        log.append(self)
+
+    def write(self, samples) -> bool:
+        self.parts.append(np.asarray(samples, np.float32))
+        self.times.append(time.perf_counter())
+        return True
+
+    def append(self, source) -> bool:
+        return self.write(source.remaining())
+
+    def close(self) -> int:
+        self.closed = True
+        return 0
+
+    def stream(self) -> np.ndarray:
+        return np.concatenate(self.parts)
+
+
+def untrimmed(path: Path) -> np.ndarray:
+    """A .glc file's decode_streaming chunks on the card, joined."""
+    ea = load_encoded(path)
+    rx = Decoder(ea.header.channels, ea.header.sample_rate,
+                 device="cuda").decode_streaming(ea)
+    parts = []
+    while True:
+        c = rx.get(timeout=300)
+        if c.error is not None:
+            raise AssertionError(f"decode_streaming failed: {c.error}")
+        parts.append(c.samples)
+        if c.is_last:
+            return np.concatenate(parts)
+
+
+def play(paths, stop=None, sink_cls=CaptureSink):
+    """playback.play_files_gapless of `paths` on the card into `sink_cls`
+    sinks, its printed lines kept; returns (sinks, seconds from the call to
+    the first append, to the last, kernel launches, printed lines)."""
+    log: list = []
+    printed = io.StringIO()
+    imdct_window.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        playback.play_files_gapless(
+            paths, lambda r, c: sink_cls(r, c, log), stop=stop,
+            device="cuda")
+    launches = imdct_window.launches
+    first = min(s.times[0] for s in log if s.times) - t0
+    last = max(s.times[-1] for s in log if s.times) - t0
+    return log, first, last, launches, printed.getvalue().splitlines()
+
+
+def producers() -> list:
+    return [t for t in threading.enumerate()
+            if t.name == PRODUCER_NAME and t.is_alive()]
+
+
+def phase_playback(many, outs, smi: str):
+    """Gapless playback of the 120 s album's .glc files: the stream, the
+    per-track trims, a format change, a stop, `glc -p` against a stub
+    ffplay, and the time to the first append and the feed rate."""
+    cfg = DEFAULT_CONFIG
+    n = cfg.n
+    chunks = decode_chunks(many, cfg.decode_chunk_frames)
+    audio_s = sum(len(o) for o in outs) / 2 / SAMPLE_RATE
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = []
+        for i, ea in enumerate(many):
+            paths.append(tmp / f"track{i}.glc")
+            save_encoded(ea, paths[-1])
+        want = np.concatenate([untrimmed(p) for p in paths])
+
+        # 1. one sink, the tracks' streams back to back, bit for bit
+        log, first, last, launches, printed = play(paths)
+        if len(log) != 1 or not log[0].closed:
+            raise AssertionError(f"{len(log)} sinks for one format")
+        stream = log[0].stream()
+        if not np.array_equal(stream, want):
+            raise AssertionError("played stream != the tracks' "
+                                 "decode_streaming chunks")
+        if launches != chunks or printed[-1] != "Playback finished":
+            raise AssertionError(f"playback launched imdct_window {launches} "
+                                 f"times for {chunks} chunks; last line "
+                                 f"{printed[-1]!r}")
+        o, errs, lsbs = 0, [], []
+        for ea, out in zip(many, outs, strict=True):
+            length = (ea.frame_set.num_frames + 1) * n * 2
+            skip, limit = gapless_trim_bounds(length, ea.gapless_info, 2,
+                                              cfg.reference_compat)
+            part = stream[o + skip : o + skip + limit]
+            o += length
+            f32 = Decoder(2, SAMPLE_RATE, device="cuda").decode(ea)
+            errs.append(float(np.abs(part - f32).max()))
+            lsbs.append(int(np.abs(convert_f32_to_i16(part).astype(np.int32)
+                                   - out.astype(np.int32)).max()))
+            if len(part) != len(f32) or errs[-1] > STREAM_TOL or lsbs[-1] > 1:
+                raise AssertionError(f"a trimmed track: {errs[-1]} vs decode, "
+                                     f"{lsbs[-1]} LSB vs decode_i16")
+        if o != len(stream):
+            raise AssertionError("the stream is not the tracks' streams")
+        print(f"[playback] play_files_gapless of {len(paths)} x "
+              f"{ALBUM_SECONDS[1]} s: one "
+              f"sink, stream == the tracks' decode_streaming chunks bit for "
+              f"bit; trimmed tracks vs decode max {max(errs):.1e} (tol "
+              f"{STREAM_TOL}), vs decode_i16 max {max(lsbs)} LSB; "
+              f"imdct_window launches {launches} == {chunks} chunks")
+
+        firsts, feeds = [first], [audio_s / last]
+        for _ in range(FEED_RUNS):
+            log, first, last, _launches, _printed = play(paths)
+            if len(log[0].stream()) != len(want):
+                raise AssertionError("a timed playback lost samples")
+            firsts.append(first)
+            feeds.append(audio_s / last)
+        print(f"[playback] {smi}: time to the first sink append, median of "
+              f"{FEED_RUNS}: {np.median(firsts[1:]) * 1e3:.2f} ms "
+              f"(runs {', '.join(f'{t * 1e3:.2f}' for t in firsts[1:])}; the "
+              f"checked first call {firsts[0] * 1e3:.2f} ms)")
+        print(f"[playback] {smi}: feed rate on the {audio_s:.0f} s playlist "
+              f"(audio seconds / wall seconds to the last append), median "
+              f"of {FEED_RUNS}: {np.median(feeds[1:]):.1f}x realtime (runs "
+              f"{', '.join(f'{f:.1f}' for f in feeds[1:])}; the checked "
+              f"first call {feeds[0]:.1f}x)")
+
+        # 2. a mono track appended: the sink restarts once
+        mono = make_signal(MONO_SECONDS, seed=ALBUM_TRACKS + 1, channels=1)
+        mono_ea = Encoder(SAMPLE_RATE, device="cuda").encode_pcm16(mono, 1)
+        mono_path = tmp / "mono.glc"
+        save_encoded(mono_ea, mono_path)
+        mono_chunks = decode_chunks([mono_ea], cfg.decode_chunk_frames)
+        log, _f, _l, launches, _p = play(paths + [mono_path])
+        formats = [(s.sample_rate, s.channels, s.closed) for s in log]
+        if formats != [(SAMPLE_RATE, 2, True), (SAMPLE_RATE, 1, True)]:
+            raise AssertionError(f"sinks {formats}")
+        if not (np.array_equal(log[0].stream(), want)
+                and np.array_equal(log[1].stream(), untrimmed(mono_path))):
+            raise AssertionError("a format change altered the stream")
+        if launches != chunks + mono_chunks:
+            raise AssertionError(f"{launches} launches for "
+                                 f"{chunks} + {mono_chunks} chunks")
+        print(f"[playback] + a mono {MONO_SECONDS} s track: the sink "
+              f"restarted once ({formats[0][:2]} -> {formats[1][:2]}), both "
+              f"streams bit for bit; imdct_window launches {launches} == "
+              f"{chunks} + {mono_chunks} chunks (the mono one at "
+              f"{mono_ea.frame_set.num_frames} rows)")
+
+        # 3. a stop after the first chunk
+        stop = threading.Event()
+
+        class StopSink(CaptureSink):
+            def append(self, source):
+                ok = super().append(source)
+                stop.set()
+                return ok
+
+        t0 = time.perf_counter()
+        log, _f, _l, _launches, _p = play(paths, stop=stop,
+                                          sink_cls=StopSink)
+        written = sum(len(s.parts) for s in log)
+        while producers() and time.perf_counter() - t0 < 5:
+            time.sleep(0.01)
+        left = producers()
+        t_stop = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if written != 1 or left:
+            raise AssertionError(f"stop: {written} chunks written, "
+                                 f"{len(left)} producers alive")
+        print(f"[playback] a sink that stops after its first chunk: 1 chunk "
+              f"written, no producer thread alive {t_stop:.3f} s after the "
+              f"call began, torch.cuda.synchronize() passes")
+
+        # 4. glc -p and glc -p --ffplay against a stub ffplay
+        phase_play_cli(tmp, paths, want, chunks)
+
+
+def phase_play_cli(tmp: Path, paths, want: np.ndarray, chunks: int):
+    """cli.main(["-p", ...]) and (["-p", "--ffplay", ...]) with an `ffplay`
+    first on PATH that appends its stdin to a file, and the audio device
+    probe off: the file holds the played stream as f32le."""
+    stub_dir = tmp / "bin"
+    stub_dir.mkdir()
+    stub = stub_dir / "ffplay"
+    stub.write_text('#!/bin/sh\ncat >> "$GLC_SMOKE_FFPLAY_OUT"\n')
+    stub.chmod(0o755)
+    sink_file = tmp / "ffplay.f32"
+    saved_env = {k: os.environ.get(k)
+                 for k in ("PATH", "GLC_SMOKE_FFPLAY_OUT")}
+    probe = playback._probe_device_backend
+    os.environ["PATH"] = f"{stub_dir}{os.pathsep}{os.environ.get('PATH', '')}"
+    os.environ["GLC_SMOKE_FFPLAY_OUT"] = str(sink_file)
+    playback._probe_device_backend = lambda: None
+    try:
+        for flags in ([], ["--ffplay"]):
+            printed = io.StringIO()
+            imdct_window.launches = 0
+            with contextlib.redirect_stdout(printed):
+                rc = cli.main(["-p", *flags, *map(str, paths)])
+            launches = imdct_window.launches
+            got = np.fromfile(sink_file, "<f4")
+            sink_file.unlink()
+            lines = printed.getvalue().splitlines()
+            if rc != 0 or lines[-1] != "Playback finished":
+                raise AssertionError(f"glc -p {flags}: exit code {rc}, last "
+                                     f"line {lines[-1]!r}")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"glc -p {flags}: the stub's bytes != "
+                                     f"the played stream")
+            if launches != chunks:
+                raise AssertionError(f"glc -p {flags}: {launches} launches "
+                                     f"for {chunks} chunks")
+            print(f"[playback] cli.main(['-p', {', '.join(map(repr, flags))}"
+                  f"{', ' if flags else ''}<{len(paths)} files>]): exit code "
+                  f"0, the stub ffplay got {got.nbytes} bytes == the played "
+                  f"stream as f32le; imdct_window launches {launches}")
+    finally:
+        playback._probe_device_backend = probe
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_controller(short_items, short_many):
+    """CodecController on the card over two WAVs of the 15 s album:
+    encode_selected, play_gapless, export_playlist."""
+    cfg = DEFAULT_CONFIG
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wavs = []
+        for i, (x, c) in enumerate(short_items[:2]):
+            wavs.append(tmp / f"ctl{i}.wav")
+            write_wav_i16(wavs[-1], x, SAMPLE_RATE, c)
+        log: list = []
+        ctl = CodecController(
+            sink_factory=lambda r, c: CaptureSink(r, c, log), device="cuda")
+        ctl.add_files(wavs)
+        ctl.encode_selected(wait=True)
+        snap = ctl.snapshot()
+        glcs = [w.with_suffix(".glc") for w in wavs]
+        if snap.status != "Encoded 2/2" or snap.encoded_files != glcs:
+            raise AssertionError(f"encode_selected: {snap}")
+        for g, ea in zip(glcs, short_many, strict=False):
+            if serialize_encoded(load_encoded(g)) != serialize_encoded(ea):
+                raise AssertionError(f"{g.name} != encode_pcm16")
+
+        ctl.add_to_playlist([0, 1])
+        imdct_window.launches = 0
+        ctl.play_gapless(wait=True)
+        play_launches = imdct_window.launches
+        snap = ctl.snapshot()
+        eas = [load_encoded(g) for g in glcs]
+        want_play = decode_chunks(eas, cfg.decode_chunk_frames)
+        if snap.status != "Playback finished" or len(log) != 1:
+            raise AssertionError(f"play_gapless: {snap.status}, "
+                                 f"{len(log)} sinks")
+        if not np.array_equal(log[0].stream(),
+                              np.concatenate([untrimmed(g) for g in glcs])):
+            raise AssertionError("play_gapless stream != decode_streaming")
+        if play_launches != want_play:
+            raise AssertionError(f"play_gapless: {play_launches} launches "
+                                 f"for {want_play} chunks")
+
+        imdct_window.launches = 0
+        ctl.export_playlist(tmp / "ctl.flac", FLAC_LEVEL, wait=True)
+        exp_launches = imdct_window.launches
+        want_exp = decode_chunks(eas, cfg.stream_chunk_frames)
+        if ctl.snapshot().status != "Export complete":
+            raise AssertionError(f"export_playlist: {ctl.snapshot()}")
+        album.export_playlist_to_flac(glcs, tmp / "ref.flac", FLAC_LEVEL,
+                                      device="cuda")
+        if (tmp / "ctl.flac").read_bytes() != (tmp / "ref.flac").read_bytes():
+            raise AssertionError("export_playlist != export_playlist_to_flac")
+        if exp_launches != want_exp:
+            raise AssertionError(f"export_playlist: {exp_launches} launches "
+                                 f"for {want_exp} chunks")
+    print(f"[controller] on 2 x {ALBUM_SECONDS[0]} s WAVs: encode_selected "
+          f"== encode_pcm16 bytes; play_gapless 'Playback finished', stream "
+          f"== decode_streaming, imdct_window launches {play_launches}; "
+          f"export_playlist == album.export_playlist_to_flac bytes, "
+          f"imdct_window launches {exp_launches}")
+
+
+def phase_profile(encoded, out):
+    """GLC_PROFILE around two decode_i16 calls of the 180 s container: each
+    torch.profiler trace holds the decode_i16 span and one imdct_window
+    kernel event a chunk; the walls say what tracing costs (the first call
+    also starts CUPTI)."""
+    cfg = DEFAULT_CONFIG
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
+    walls, found = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        traces = Path(tmp) / "decode_i16"
+        os.environ["GLC_PROFILE"] = tmp
+        try:
+            for _ in range(2):
+                imdct_window.launches = 0
+                t0 = time.perf_counter()
+                got = dec.decode_i16(encoded)
+                walls.append(time.perf_counter() - t0)
+                launches = imdct_window.launches
+                if not np.array_equal(got, out) or launches != chunks:
+                    raise AssertionError(f"traced decode_i16: {launches} "
+                                         f"launches for {chunks} chunks, or "
+                                         f"output != untraced")
+                new = [f for f in traces.glob("*.pt.trace.json")
+                       if f not in {g for g, _e, _s in found}]
+                if len(new) != 1:
+                    raise AssertionError(f"GLC_PROFILE wrote {len(new)} "
+                                         f"traces for one call")
+                found.append((new[0], json.loads(new[0].read_text())[
+                    "traceEvents"], new[0].stat().st_size))
+        finally:
+            os.environ.pop("GLC_PROFILE")
+    t_plain = float(np.median([_wall(lambda: dec.decode_i16(encoded))
+                               for _ in range(5)]))
+    for _f, events, _size in found:
+        spans = [e for e in events if e.get("name") == "decode_i16"]
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        ours = [e for e in kernel_events
+                if "imdct_window" in e.get("name", "")]
+        if not spans or len(ours) != chunks:
+            cats = sorted({str(e.get("cat")) for e in events})
+            raise AssertionError(
+                f"trace: {len(spans)} decode_i16 spans, {len(ours)} "
+                f"imdct_window kernel events of {len(kernel_events)} kernel "
+                f"events, for {chunks} chunks; categories {cats}")
+    print(f"[profile] GLC_PROFILE around decode_i16 of 180 s, twice: each "
+          f"trace ({', '.join(str(sz) for _f, _e, sz in found)} bytes) holds "
+          f"the decode_i16 span and {chunks} imdct_window kernel events == "
+          f"{chunks} chunks; output == untraced; wall traced "
+          f"{walls[0]:.3f} s (first, CUPTI starts) and {walls[1]:.3f} s, "
+          f"untraced {t_plain:.4f} s (median of 5)")
+
+
+def device_busy_ms(events, t0: float, t1: float) -> float:
+    """Milliseconds of [t0, t1] (trace microseconds) in which the card ran
+    a kernel, a copy or a memset: the union of those events' intervals."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / 1e3
+
+
+def phase_play_profile(many, smi: str):
+    """One play_files_gapless of the 480 s album under profiling.trace:
+    the device's busy time and idle share inside the call's span."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = []
+        for i, ea in enumerate(many):
+            paths.append(tmp / f"track{i}.glc")
+            save_encoded(ea, paths[-1])
+        log: list = []
+        traces = tmp / "trace"
+        with profiling.trace(str(traces)), contextlib.redirect_stdout(
+                io.StringIO()):
+            with profiling.annotate("play_files_gapless"):
+                playback.play_files_gapless(
+                    paths, lambda r, c: CaptureSink(r, c, log),
+                    device="cuda")
+        (trace,) = traces.glob("*.pt.trace.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == "play_files_gapless"
+               and e.get("cat") == "user_annotation"]
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    busy = device_busy_ms(events, t0, t1)
+    kernels_ms = device_busy_ms(
+        [e for e in events if e.get("cat") == "kernel"
+         and "imdct_window" in e.get("name", "")], t0, t1)
+    print(f"[profile] play_files_gapless of the 480 s album under "
+          f"profiling.trace ({smi}): span {span['dur'] / 1e3:.2f} ms, device "
+          f"busy {busy:.3f} ms (imdct_window {kernels_ms:.3f} ms), idle "
+          f"share {1 - busy / (span['dur'] / 1e3):.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -689,6 +1147,10 @@ def main() -> int:
     _items, many, outs = phase_album(ALBUM_SECONDS[1], smi)
     phase_album_export(many, outs)
     phase_album_cli(short[0])
+    phase_playback(many, outs, smi)
+    phase_controller(short[0], short[1])
+    phase_profile(encoded, out)
+    phase_play_profile(many, smi)
     unchecked = LAUNCHED_ROWS - set(kern)
     if not LAUNCHED_ROWS or unchecked:
         raise AssertionError(f"imdct_window launched at rows "
@@ -697,16 +1159,20 @@ def main() -> int:
           f"{sorted(LAUNCHED_ROWS, reverse=True)}, each checked against the "
           f"plain version above")
 
-    diff, ms, plain_ms = kern[2 * DEFAULT_CONFIG.decode_chunk_frames]
+    _diff, ms, plain_ms, lib_ms, bound_ms, bound_by = kern[
+        2 * DEFAULT_CONFIG.decode_chunk_frames]
     print(json.dumps({"kernels": [{
         "name": "imdct_window",
         "route": "cuda",
         "source": "glc_tpu_torch/csrc/imdct_window.cu",
         "replaces": "glc_tpu/ops/pallas_kernels.py:47",
         "launches": launches,
-        "max_abs_err": max(d for d, _m, _p in kern.values()),
+        "max_abs_err": max(k[0] for k in kern.values()),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
         "rows_checked": sorted(kern, reverse=True),
     }]}))
     print(json.dumps({"ok": True, "device": {

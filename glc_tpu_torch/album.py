@@ -61,7 +61,7 @@ def decode_playlist(
 
     Returns (samples int16 interleaved, sample_rate, channels).  All files
     must share a sample rate and channel count.  `device` is the
-    decoder's (None picks CUDA when present).
+    decoder's (None: `resolve_device`'s rule).
     """
     encodeds, rate, channels = _load_playlist(paths)
     dec = Decoder(channels, rate, device=device)

@@ -5,13 +5,17 @@ codes:
 
     python -m glc_tpu_torch <file.wav|file.flac> ...                    Encode to .glc
     python -m glc_tpu_torch -d <file.glc> ... [--wav] [--flac-level N]  Decode .glc files
+    python -m glc_tpu_torch -p <file.glc> ... [--ffplay]                Play .glc files (gapless)
+    python -m glc_tpu_torch                                             Launch the GUI
 
 Decoding writes FLAC by default (`Decoder.decode_i16_stream` feeding
-`encode_flac_i16_streaming`), or WAV with ``--wav``.  Not ported yet, and
-refused with exit code 2 instead of falling through: playback (``-p``).
-With no arguments the usage is printed (the JAX package would try its
-GUI).  Several input files are loaded first and encoded in batches through
-`Encoder.encode_many` (`_encode_jobs`), as the JAX CLI does.
+`encode_flac_i16_streaming`), or WAV with ``--wav``.  Playback streams
+`Decoder.decode_streaming`'s chunks to one sink (playback.py); with no
+arguments the tkinter GUI starts, or, with no display, the usage is
+printed.  Several input files are loaded first and encoded in batches
+through `Encoder.encode_many` (`_encode_jobs`), as the JAX CLI does.  The
+CLI takes no device argument: it runs on the card, or where
+$GLC_TORCH_DEVICE says (``cpu``).
 """
 
 from __future__ import annotations
@@ -34,14 +38,18 @@ def is_glc_file(path: Path) -> bool:
 
 
 def print_usage() -> None:
-    """main.rs:330-352, less playback and the GUI."""
+    """main.rs:330-352"""
     e = lambda s="": print(s, file=sys.stderr)
     e("Usage:")
     e("  glc <file.wav|file.flac> ...                    Encode audio files to .glc")
     e("  glc -d <file.glc> ... [--wav] [--flac-level N]  Decode .glc files")
+    e("  glc -p <file.glc> ... [--ffplay]                Play .glc files (gapless)")
+    e("  glc                                              Launch GUI (if ui feature enabled)")
     e()
     e("Options:")
     e("  -d, --decode       Decode .glc files to FLAC (default) or WAV")
+    e("  -p, --play         Play .glc files using audio system (gapless for multiple files)")
+    e("      --ffplay       Use ffplay for playback (sequential for multiple files)")
     e("      --wav          Output WAV format instead of FLAC")
     e("      --flac-level   Set FLAC compression level 0-8 (default: 5)")
     e()
@@ -49,8 +57,9 @@ def print_usage() -> None:
     e("  glc audio.wav                         # Encode to audio.glc")
     e("  glc -d file1.glc file2.glc --wav      # Decode multiple files to WAV")
     e("  glc -d file.glc --flac-level 8        # Decode with maximum FLAC compression")
+    e("  glc -p track1.glc track2.glc          # Play multiple files gaplessly")
     e()
-    e("Supported formats: WAV, FLAC (input), GLC (decode)")
+    e("Supported formats: WAV, FLAC (input), GLC (decode/play)")
 
 
 def encode_file(input_path: Path) -> None:
@@ -179,6 +188,50 @@ def _main_decode(args: List[str]) -> int:
     return 1 if has_errors else 0
 
 
+def _main_play(args: List[str]) -> int:
+    """main.rs:460-543"""
+    from .playback import play_file_with_ffplay, play_files_gapless
+
+    if not args:
+        print("Error: -p requires at least one .glc file", file=sys.stderr)
+        print_usage()
+        return 1
+
+    use_ffplay = False
+    files_to_play: List[Path] = []
+    for a in args:
+        if a == "--ffplay":
+            use_ffplay = True
+        else:
+            path = Path(a)
+            if not path.exists():
+                print(f"Error: File not found: {str(path)!r}", file=sys.stderr)
+                return 1
+            if not is_glc_file(path):
+                print(f"Error: Not a .glc file: {str(path)!r}", file=sys.stderr)
+                return 1
+            files_to_play.append(path)
+
+    if not files_to_play:
+        print("Error: No valid .glc files to play", file=sys.stderr)
+        return 1
+
+    if use_ffplay:
+        for path in files_to_play:  # sequential, main.rs:512-527
+            try:
+                play_file_with_ffplay(path)
+            except Exception as e:
+                print(f"Error playing file: {e}", file=sys.stderr)
+                return 1
+    else:
+        try:
+            play_files_gapless(files_to_play)
+        except Exception as e:
+            print(f"Error playing files: {e}", file=sys.stderr)
+            return 1
+    return 0
+
+
 # Flush the pending encode batch whenever this much decoded PCM is resident
 # (glc_tpu/cli.py:229-232): a 100-track album must not hold every track's
 # samples in host memory at once.
@@ -290,16 +343,22 @@ def _main_encode(args: List[str]) -> int:
 def main(argv: List[str] | None = None) -> int:
     """main.rs:354-613"""
     args = list(sys.argv[1:] if argv is None else argv)
-    if not args:
+    if args:
+        first = args[0]
+        if first in ("-d", "--decode"):
+            return _main_decode(args[1:])
+        if first in ("-p", "--play"):
+            return _main_play(args[1:])
+        return _main_encode(args)
+
+    # GUI mode (main.rs:586-611); fall back to usage + exit 1 when no
+    # GUI backend/display is available, like a build without the ui feature
+    try:
+        from .ui import run_gui
+        return run_gui()
+    except Exception:
         print_usage()
         return 1
-    first = args[0]
-    if first in ("-d", "--decode"):
-        return _main_decode(args[1:])
-    if first in ("-p", "--play"):
-        print("Error: playback is not ported yet", file=sys.stderr)
-        return 2
-    return _main_encode(args)
 
 
 if __name__ == "__main__":

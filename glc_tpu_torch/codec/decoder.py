@@ -49,6 +49,7 @@ import torch
 from ..config import CodecConfig, DEFAULT_CONFIG
 from ..container.schema import AudioChunk, EncodedAudio, FrameSet, Progress
 from ..ops.decode import decode_stacked, dense_q, to_i16
+from ..profiling import maybe_trace
 from .device import resolve_device, upload_concat
 from .tables import chunk_size_for, get_codec_tables
 
@@ -58,6 +59,9 @@ ProgressSender = Callable[[Progress], None]
 # not yet handed to the consumer (glc_tpu/codec/decoder.py:83).  It bounds
 # the pinned host memory and device buffers a long file holds at once.
 _PIPELINE_DEPTH = 8
+
+# The name of `decode_streaming`'s producer threads.
+PRODUCER_NAME = "glc-decode-producer"
 
 
 def gapless_trim_bounds(pre_len: int, gapless_info, channels: int,
@@ -154,8 +158,9 @@ class _Download:
 
 class Decoder:
     """reference src/codec.rs:571-592 (stateless, Q8).  `device` is where
-    the math runs ("cuda", "cpu", a torch.device; None picks CUDA when
-    present)."""
+    the math runs ("cuda", "cpu", a torch.device; None is
+    `resolve_device`'s: $GLC_TORCH_DEVICE, else the card, else an
+    error)."""
 
     def __init__(self, channels: int, sample_rate: int,
                  config: Optional[CodecConfig] = None, device=None):
@@ -324,7 +329,8 @@ class Decoder:
         """Decode to trimmed, interleaved int16: the concatenation of
         `decode_i16_stream` at the default chunk size.  Within 1 LSB of
         ``convert_f32_to_i16(decode(encoded))``."""
-        parts = list(self.decode_i16_stream(encoded))
+        with maybe_trace("decode_i16"):
+            parts = list(self.decode_i16_stream(encoded))
         if not parts:
             return np.empty(0, np.int16)
         return np.concatenate(parts)
@@ -430,18 +436,20 @@ class Decoder:
         overlap tail and has ``is_last=True``.  The output is UNtrimmed,
         exactly like the reference streaming path (the gapless trim only
         happens in `decode`, codec.rs:744-768).  A consumer that abandons
-        the stream sets ``rx.cancelled``; a failure arrives as a terminal
-        ``AudioChunk(error=...)``.
+        the stream sets ``rx.cancelled``, and may join ``rx.producer`` (the
+        thread), which ends at its next chunk without leaving a copy in
+        flight; a failure arrives as a terminal ``AudioChunk(error=...)``.
         """
         rx: "queue.Queue[AudioChunk]" = queue.Queue(maxsize=5)
         # the crossbeam analog: rx dropped → send errors → thread exits
         rx.cancelled = threading.Event()  # type: ignore[attr-defined]
-        t = threading.Thread(
+        rx.producer = threading.Thread(  # type: ignore[attr-defined]
             target=self._produce_safe,
             args=(encoded, rx, progress_sender),
+            name=PRODUCER_NAME,
             daemon=True,
         )
-        t.start()
+        rx.producer.start()
         return rx
 
     def _produce_safe(self, encoded, rx, progress_sender):
@@ -521,19 +529,26 @@ class Decoder:
         # one chunk of lookahead: chunk i+1 is queued on the device before
         # the host waits for chunk i's download
         inflight = None  # (download, valid)
-        for valid, hops in self._chunks(encoded, chunk):
-            prev, inflight = inflight, (_Download(hops, out_i16=False), valid)
-            if prev is not None:
-                pending.append(prev[0].wait())
-                pending_frames += prev[1]
+        try:
+            for valid, hops in self._chunks(encoded, chunk):
+                prev, inflight = inflight, (_Download(hops, out_i16=False),
+                                            valid)
+                if prev is not None:
+                    pending.append(prev[0].wait())
+                    pending_frames += prev[1]
+                    flush_full_chunks()
+            if inflight is not None:
+                arr = inflight[0].wait()
+                valid = inflight[1]
+                pending.append(arr[:valid])
+                pending_frames += valid
+                tail = arr[valid]
                 flush_full_chunks()
-        if inflight is not None:
-            arr = inflight[0].wait()
-            valid = inflight[1]
-            pending.append(arr[:valid])
-            pending_frames += valid
-            tail = arr[valid]
-            flush_full_chunks()
+        finally:
+            # a cancelled or failed stream leaves no copy into a pinned
+            # buffer in flight behind it
+            if inflight is not None:
+                inflight[0].wait()
 
         # final chunk: remaining frames + last overlap tail (codec.rs:722-732)
         rest = [p.reshape(-1) for p in pending]
@@ -547,15 +562,16 @@ class Decoder:
                progress_sender: Optional[ProgressSender] = None) -> np.ndarray:
         """Decode to trimmed, interleaved float32 (codec.rs:744-768): the
         chunks of `decode_streaming`, joined and gapless-trimmed."""
-        rx = self.decode_streaming(encoded, progress_sender)
-        parts = []
-        while True:
-            chunk = rx.get()
-            if chunk.error is not None:
-                raise RuntimeError(f"decode failed: {chunk.error}")
-            parts.append(chunk.samples)
-            if chunk.is_last:
-                break
+        with maybe_trace("decode"):
+            rx = self.decode_streaming(encoded, progress_sender)
+            parts = []
+            while True:
+                chunk = rx.get()
+                if chunk.error is not None:
+                    raise RuntimeError(f"decode failed: {chunk.error}")
+                parts.append(chunk.samples)
+                if chunk.is_last:
+                    break
         full = np.concatenate(parts)
         skip, limit = gapless_trim_bounds(
             len(full), encoded.gapless_info, encoded.header.channels,

@@ -2,16 +2,30 @@
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+# The device of every entry point that is given none (the CLI, the FLAC
+# device math): "cpu" runs the port on the CPU, as the tests do.  The
+# counterpart of the JAX package's JAX_PLATFORMS.
+DEVICE_ENV = "GLC_TORCH_DEVICE"
+
 
 def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device; None picks CUDA when a card is present,
-    else the CPU."""
+    """`device` as a torch.device.  None means $GLC_TORCH_DEVICE if set,
+    else the CUDA card; with neither, it raises rather than run on the CPU
+    unasked."""
+    if device is None:
+        device = os.environ.get(DEVICE_ENV) or None
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device found; to run on the CPU pass device='cpu' or "
+            f"set {DEVICE_ENV}=cpu")
+    return torch.device("cuda")
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -39,6 +39,7 @@ from ..container.schema import (
     GaplessInfo,
 )
 from ..ops.encode import encode_segment, planarize
+from ..profiling import maybe_trace
 from .device import resolve_device, upload
 from .tables import get_codec_tables, len_bucket
 
@@ -156,7 +157,8 @@ class Encoder:
 
     Stateless: all state is the immutable tables, so `encode` is a pure
     function of its inputs.  `device` is where the math runs ("cuda",
-    "cpu", a torch.device; None picks CUDA when present).
+    "cpu", a torch.device; None is `resolve_device`'s: $GLC_TORCH_DEVICE,
+    else the card, else an error).
     """
 
     def __init__(self, sample_rate: int, config: Optional[CodecConfig] = None,
@@ -177,16 +179,18 @@ class Encoder:
                 "encode() expects float PCM in [-1, 1]; for 16-bit integer "
                 "sources use encode_pcm16() (exact, half the upload)"
             )
-        return self._encode(samples.astype(np.float32, copy=False),
-                            channels, pcm16=False)
+        with maybe_trace("encode"):
+            return self._encode(samples.astype(np.float32, copy=False),
+                                channels, pcm16=False)
 
     def encode_pcm16(self, samples_i16: np.ndarray,
                      channels: int) -> EncodedAudio:
         """Exact fast path for 16-bit integer sources: the same container
         as `encode(samples_i16 / 32768.0, ch)`, with the division on the
         device (exact in f32) after a half-size upload."""
-        return self._encode(np.asarray(samples_i16, np.int16), channels,
-                            pcm16=True)
+        with maybe_trace("encode"):
+            return self._encode(np.asarray(samples_i16, np.int16), channels,
+                                pcm16=True)
 
     def encode_many(self, items) -> list:
         """Encode several tracks (glc_tpu/codec/encoder.py:468-905):
@@ -209,7 +213,8 @@ class Encoder:
             if len(samples) == 0:
                 raise ValueError("cannot encode empty input")
             frame_plan(len(samples), channels, self.config)
-        return [self._encode(s, c, pcm16=p) for s, c, p in prepped]
+        with maybe_trace("encode_many"):
+            return [self._encode(s, c, pcm16=p) for s, c, p in prepped]
 
     def _encode(self, samples: np.ndarray, channels: int, *,
                 pcm16: bool) -> EncodedAudio:

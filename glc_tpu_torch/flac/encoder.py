@@ -2,7 +2,8 @@
 
 Port of ``glc_tpu/flac/encoder.py``: the host path is copied; the device
 branch of the block math (``GLC_FLAC_DEVICE_MATH=1``) runs the torch ops of
-``flac/ops.py`` on ``resolve_device(None)`` instead of a jitted program.
+``flac/ops.py`` on ``resolve_device(None)`` (``$GLC_TORCH_DEVICE``, else
+the card) instead of a jitted program.
 
 API mirrors the reference (reference src/flac.rs:946-1088):
 

@@ -1,8 +1,11 @@
 """The port's `glc` CLI (python -m glc_tpu_torch): WAV and FLAC inputs to
 .glc, several inputs batched through `Encoder.encode_many`, .glc to FLAC
 (the default, at any --flac-level) and to WAV, the lines it prints beside
-the JAX package's CLI, and the refusal of what is not ported yet
-(playback)."""
+the JAX package's CLI, and the usage with no arguments and no display.
+Playback (`-p`) is tested in tests/test_torch_playback.py.
+
+The CLI takes no device argument; these tests ask for the CPU through
+GLC_TORCH_DEVICE=cpu, in this process and in the subprocesses."""
 
 import os
 import subprocess
@@ -25,6 +28,11 @@ REPO = Path(__file__).resolve().parent.parent
 RATE = 44100
 
 
+@pytest.fixture(autouse=True)
+def on_cpu(monkeypatch):
+    monkeypatch.setenv("GLC_TORCH_DEVICE", "cpu")
+
+
 def _pcm(seconds=0.5, channels=2):
     t = np.arange(int(RATE * seconds)) / RATE
     x = 0.4 * np.sin(2 * np.pi * 523.25 * t)
@@ -32,7 +40,7 @@ def _pcm(seconds=0.5, channels=2):
 
 
 def _run(args, cwd):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), GLC_TORCH_DEVICE="cpu")
     return subprocess.run(
         [sys.executable, "-m", "glc_tpu_torch", *args], cwd=cwd, env=env,
         capture_output=True, text=True, timeout=300,
@@ -127,9 +135,16 @@ def test_flac_paths_print_the_same_lines_as_the_jax_cli(tmp_path, capsys,
     assert lines["torch"][-1] == "Saved: 'song.flac' (FLAC, level 3)"
 
 
-def test_playback_is_refused(tmp_path, capsys):
-    assert torch_cli.main(["-p", str(tmp_path / "x.glc")]) == 2
-    assert "playback is not ported yet" in capsys.readouterr().err
+def test_no_arguments_without_a_display_prints_usage(monkeypatch, capsys):
+    """With no arguments both CLIs try the GUI; with no display they print
+    the usage and exit 1."""
+    monkeypatch.delenv("DISPLAY", raising=False)
+    errs = []
+    for cli in (jax_cli, torch_cli):
+        assert cli.main([]) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1]
+    assert "glc -p <file.glc> ... [--ffplay]" in errs[1]
 
 
 def test_prints_the_same_lines_as_the_jax_cli(tmp_path, capsys):

@@ -124,8 +124,10 @@ def test_streaming_bytes_equal_whole_stream(monkeypatch, level, whole_pack,
 @pytest.mark.parametrize("level", [1, 5, 8])
 def test_device_math_branch_gives_the_same_bytes(monkeypatch, level):
     """GLC_FLAC_DEVICE_MATH=1: the torch block math on the default device
-    (the CPU here), whole-stream and streaming."""
+    (the CPU here, through GLC_TORCH_DEVICE), whole-stream and streaming."""
     from glc_tpu.flac.encoder import encode_flac_i16_with_level as jax_encode
+
+    monkeypatch.setenv("GLC_TORCH_DEVICE", "cpu")
 
     i16 = _i16(TOTAL, 2, seed=3)
     want = jax_encode(i16, RATE, 2, level)
