@@ -15,8 +15,9 @@ Phases, each printing its own line(s):
    128, 129), at a ragged 1000, and at every row count the paths below
    launch it with (`path_rows`: each chunk's frames x 2 channels at the
    decode and the stream chunk sizes, on the 180 s file, the 10 s excerpt,
-   the stereo album tracks and the playback phase's mono track, and the
-   stacked rows of every decode_many launch of the album phase): atol =
+   the stereo album tracks and the playback phase's mono track, the
+   stacked rows of every decode_many launch of the album phase, and each
+   sharded rank's block, `sharded_rows`): atol =
    rtol = 2e-5, both errors against a float64 product, the kernel's no
    more than 2x the plain version's; median time of 20 runs after 3
    warm-ups, with CUDA events, of the kernel, the plain version and the
@@ -68,7 +69,22 @@ Phases, each printing its own line(s):
    equal encode_flac_i16_with_level of the playlist and decode back to it;
    and the CLI encoding the four 15 s WAVs in one main([...]) call, through
    one encode_many, into the per-file containers;
-12. playback — playback.play_files_gapless of the 120 s album's .glc files
+12. sharded — glc_tpu_torch.parallel on the one card, in three worlds of
+   spawned ranks, each rank on cuda:0: gloo 2 ranks (mesh 1 x 2), gloo 4
+   ranks (2 x 2; the halo and the gathers through host memory) and NCCL 1
+   rank (1 x 1; the gathers on the card).  After a warm-up, each world
+   runs encode_album_sharded and decode_album_sharded of both albums (the
+   f32 tracks) and roundtrip_step_sharded at its dry-run shape and at
+   (4, 4).  Each container equals the serial Encoder.encode's bytes or
+   holds the pair contract (the flip rate, the first divergence and the
+   MDCT row counts of both sides printed); each decode is within rtol
+   2e-6, atol 1e-7 of the serial Decoder.decode, of the original length
+   (bit for bit equality printed); the ranks' results agree; the mse at
+   (4, 4) agrees across worlds within 1e-6; each rank launches the kernel
+   at the rows `sharded_rows` predicts; the walls are printed beside the
+   serial loops'.  A rank that fails, or a world not done in 300 s, fails
+   the run;
+13. playback — playback.play_files_gapless of the 120 s album's .glc files
    into a capture sink: one sink, the stream equal to the tracks'
    decode_streaming chunks bit for bit, each track's trimmed part within
    1e-6 of decode and 1 LSB of decode_i16, one launch a chunk; the time to
@@ -78,10 +94,10 @@ Phases, each printing its own line(s):
    written, no producer thread left, torch.cuda.synchronize() passes); and
    cli.main(["-p", ...]) and (["-p", "--ffplay", ...]) against a stub
    ffplay written into a temporary directory, whose bytes are the stream;
-13. controller — CodecController on two 15 s WAVs: encode_selected equals
+14. controller — CodecController on two 15 s WAVs: encode_selected equals
    encode_pcm16 byte for byte, play_gapless feeds the decode_streaming
    stream, export_playlist equals album.export_playlist_to_flac;
-14. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
+15. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
    container: each torch.profiler trace holds the decode_i16 span and one
    imdct_window kernel event a chunk; the traced and untraced walls; and
    one play_files_gapless of the 480 s album under profiling.trace: the
@@ -99,28 +115,36 @@ without a CUDA device the script exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import hashlib
 import io
 import json
+import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import glc_tpu_torch  # noqa: F401  (turns TF32 off: full-f32 matmuls)
 from glc_tpu_torch import (
-    Decoder, Encoder, load_encoded, save_encoded, serialize_encoded,
+    Decoder, Encoder, deserialize_encoded, load_encoded, save_encoded,
+    serialize_encoded,
 )
-from glc_tpu_torch import album, cli, native, playback, profiling
+from glc_tpu_torch import album, cli, native, parallel, playback, profiling
 from glc_tpu_torch.codec.decoder import PRODUCER_NAME, gapless_trim_bounds
 from glc_tpu_torch.codec.encoder import upload_geometry
-from glc_tpu_torch.codec.tables import chunk_size_for, get_codec_tables
+from glc_tpu_torch.codec.tables import (
+    chunk_size_for, get_codec_tables, pow2_bucket,
+)
 from glc_tpu_torch.config import DEFAULT_CONFIG
 from glc_tpu_torch.container.schema import ProgressKind
 from glc_tpu_torch.controller import CodecController
@@ -134,6 +158,7 @@ from glc_tpu_torch.io.wav import convert_f32_to_i16, write_wav_i16
 from glc_tpu_torch.ops import decode as decode_ops
 from glc_tpu_torch.ops import kernels
 from glc_tpu_torch.ops.kernels import imdct_window, imdct_window_reference
+from glc_tpu_torch.parallel.mesh import mesh_shape
 from glc_tpu_torch.parity import check_containers
 
 # the launch geometry of decode_many, kept beside the tests that hold the
@@ -153,6 +178,14 @@ FLAC_LEVEL = 5
 STREAM_TOL = 1e-6
 MONO_SECONDS = 15      # the mono track the playback phase appends
 FEED_RUNS = 5          # timed playbacks of the 480 s playlist
+# The sharded phase's worlds on the one card, (backend, ranks); each mesh is
+# make_mesh's default for its rank count: (1, 2), (2, 2) and (1, 1).
+SHARDED_WORLDS = (("gloo", 2), ("gloo", 4), ("nccl", 1))
+SHARDED_TIMEOUT_S = 300  # a world's run, spawn included; collectives: 120 s
+# The round trip every world also runs, so that their mse compare: the
+# 2 x 2 mesh's dry-run shape (B, K), which every world's mesh divides
+ROUNDTRIP_COMMON = (4, 4)
+MSE_RTOL = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet, dense): TF32 on the tensor cores, the
 # unit that bounds an f32-accurate product on the card, and HBM3
 PEAK_TF32_FLOPS = 495e12
@@ -233,20 +266,40 @@ def path_rows(pcm: np.ndarray) -> list[int]:
     for seconds in ALBUM_SECONDS:
         tracks = [(2, frames_of(seconds * SAMPLE_RATE * 2))] * ALBUM_TRACKS
         rows.update(launch_rows(tracks, cfg.decode_chunk_frames))
+    for _backend, ranks in SHARDED_WORLDS:
+        rows.update(sharded_rows(ranks))
     return sorted(rows, reverse=True)
+
+
+def sharded_rows(ranks: int) -> list[int]:
+    """The row counts, in call order, each rank of a world of `ranks`
+    launches imdct_window with in the sharded phase's checked run: one
+    launch a rank for the decode of each album, on its [Bl, Kl] block of
+    the [B, K] album (Bl·Kl·2 rows; parallel/album.py's geometry), then one
+    for each round trip (C = 1): at the world's dry-run shape (B = 2d,
+    K = 2f) and at ROUNDTRIP_COMMON."""
+    d, f = mesh_shape(ranks)
+    rows = []
+    for seconds in ALBUM_SECONDS:
+        K = pow2_bucket(frames_of(seconds * SAMPLE_RATE * 2), 1 << 30)
+        K = -(-K // f) * f
+        B = -(-ALBUM_TRACKS // d) * d
+        rows.append((B // d) * (K // f) * 2)
+    B, K = ROUNDTRIP_COMMON
+    return rows + [2 * 2, (B // d) * (K // f)]
 
 
 LAUNCHED_ROWS: set[int] = set()
 
 
-def record_launch_rows():
-    """Route the decode's calls of the kernel wrapper through a recorder of
+def record_launch_rows(record=LAUNCHED_ROWS.add):
+    """Route the decode's calls of the kernel wrapper through `record` of
     their row counts; the wrapper itself, and its launch count, stay as
     they are."""
     wrapper = decode_ops.imdct_window
 
     def recorded(coeffs, *args):
-        LAUNCHED_ROWS.add(coeffs.shape[0])
+        record(coeffs.shape[0])
         return wrapper(coeffs, *args)
 
     decode_ops.imdct_window = recorded
@@ -1124,6 +1177,269 @@ def phase_play_profile(many, smi: str):
           f"share {1 - busy / (span['dur'] / 1e3):.4f}")
 
 
+def album_f32(pcm: np.ndarray) -> np.ndarray:
+    """An int16 album track as f32, i16 / 2^15: what encode_pcm16 divides
+    by on the device."""
+    return pcm.astype(np.float32) / np.float32(32768.0)
+
+
+def serial_rows(samples: int) -> list[int]:
+    """The MDCT row counts of the serial encode of a stereo track of
+    `samples` interleaved samples: each segment's frames x 2."""
+    _T, F, _pad, plan, _need = upload_geometry(samples, 2, DEFAULT_CONFIG)
+    return [2 * min(k, F - start) for start, k in plan]
+
+
+def check_sharded_album(inputs: Path, seconds: int, encs, outs,
+                        tracks) -> dict:
+    """The sharded album results of one album against the serial ones in
+    `inputs`: each container equal to the serial encode's bytes, or else
+    within the pair contract; each decode within rtol 2e-6, atol 1e-7 of
+    the serial decode (tests/test_album_sharded.py:59), of the original
+    length.  Returns the counts and errors it found."""
+    equal, flips, errs, bit_equal, first = 0, [], [], True, None
+    for i, (ea, x, o) in enumerate(zip(encs, tracks, outs, strict=True)):
+        want = (inputs / f"album{seconds}_{i}.glc").read_bytes()
+        if serialize_encoded(ea) == want:
+            equal += 1
+        else:
+            serial = deserialize_encoded(want)
+            flips.append(check_containers(ea, serial))
+            if first is None:
+                first = (i, *first_divergence(ea.frame_set,
+                                              serial.frame_set))
+        ref = np.load(inputs / f"decoded{seconds}_{i}.npy")
+        if len(o) != len(x) or len(ref) != len(x):
+            raise AssertionError(f"{seconds} s track {i}: sharded decode "
+                                 f"{len(o)} samples, serial {len(ref)}, "
+                                 f"original {len(x)}")
+        np.testing.assert_allclose(o, ref, rtol=2e-6, atol=1e-7)
+        errs.append(float(np.abs(o - ref).max()))
+        bit_equal = bit_equal and np.array_equal(o, ref)
+    return {"equal": equal, "flips": flips, "max_err": max(errs),
+            "bit_equal": bit_equal, "first": first}
+
+
+def first_divergence(fa, fb, n: int = 1024) -> tuple:
+    """Where two FrameSets of one shape first differ: the first
+    (frame, channel, k, q_a, q_b) whose dense q differs, or None, and the
+    number of (frame, channel) scales that differ."""
+    F, C = fa.nnz.shape
+    dense = []
+    for fs in (fa, fb):
+        rows = np.repeat(np.arange(F * C), fs.nnz.reshape(-1))
+        d = np.zeros(F * C * n, np.int32)
+        d[rows * n + fs.pairs["k"].astype(np.int64)] = fs.pairs["q"]
+        dense.append(d)
+    diff = np.flatnonzero(dense[0] != dense[1])
+    pair = None
+    if len(diff):
+        j = int(diff[0])
+        pair = (j // (C * n), j // n % C, j % n, int(dense[0][j]),
+                int(dense[1][j]))
+    return pair, int(np.count_nonzero(fa.scales != fb.scales))
+
+
+def sharded_rank_run(inputs: Path) -> dict:
+    """The sharded phase on one rank: a warm-up of the album calls on the
+    4 x 15 s album, then the checked and timed run (encode_album_sharded
+    and decode_album_sharded of each album, the round trips) with the
+    kernel's launches counted from 0 and their rows recorded.  Rank 0
+    also checks the albums against the serial results in `inputs`."""
+    rank, ranks = dist.get_rank(), dist.get_world_size()
+    mesh = parallel.make_mesh(ranks, device_type="cuda")
+    d, f = mesh.shape
+    tables = get_codec_tables(1024, 2048, SAMPLE_RATE, "cuda")
+    tracks = {s: [album_f32(np.load(inputs / f"album{s}_{i}.npy"))
+                  for i in range(ALBUM_TRACKS)] for s in ALBUM_SECONDS}
+    serial = {s: [deserialize_encoded((inputs / f"album{s}_{i}.glc")
+                                      .read_bytes())
+                  for i in range(ALBUM_TRACKS)] for s in ALBUM_SECONDS}
+    warm = ALBUM_SECONDS[0]
+    parallel.encode_album_sharded(mesh, tracks[warm], 2, SAMPLE_RATE)
+    parallel.decode_album_sharded(mesh, serial[warm])
+    rows: list = []
+    record_launch_rows(rows.append)
+    imdct_window.launches = 0
+    res = {"mesh": tuple(mesh.shape),
+           "device": str(torch.cuda.current_device())}
+    digest = hashlib.sha256()
+    for s in ALBUM_SECONDS:
+        dist.barrier()
+        t0 = time.perf_counter()
+        encs = parallel.encode_album_sharded(mesh, tracks[s], 2, SAMPLE_RATE)
+        t_enc = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        outs = parallel.decode_album_sharded(mesh, serial[s])
+        t_dec = time.perf_counter() - t0
+        for ea in encs:
+            digest.update(serialize_encoded(ea))
+        for o in outs:
+            digest.update(o.tobytes())
+        res[s] = {"t_enc": t_enc, "t_dec": t_dec}
+        if rank == 0:
+            res[s].update(check_sharded_album(inputs, s, encs, outs,
+                                              tracks[s]))
+    for B, K in ((2 * d, 2 * f), ROUNDTRIP_COMMON):
+        blocks = np.random.default_rng(0).standard_normal(
+            (B, K, 1, 2048)).astype(np.float32) * 0.1
+        mse, hops = parallel.roundtrip_step_sharded(
+            mesh, blocks, np.zeros((B, 1, 1024), np.float32), tables)
+        if not np.isfinite(float(mse)) or tuple(hops.shape) != (B, K, 1, 1024):
+            raise AssertionError(f"round trip ({B}, {K}): mse {float(mse)}, "
+                                 f"hops {tuple(hops.shape)}")
+        res[(B, K)] = float(mse)
+        digest.update(hops.cpu().numpy().tobytes())
+    res.update(launches=imdct_window.launches, rows=rows,
+               digest=digest.hexdigest())
+    return res
+
+
+def _sharded_rank(rank: int, backend: str, ranks: int, inputs: str,
+                  workdir: str) -> None:
+    """One spawned rank of a sharded-phase world: its results go to
+    rank<r>.pkl in `workdir`, a failure's traceback to rank<r>.err."""
+    out = Path(workdir)
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, store=dist.FileStore(str(out / "store"), ranks),
+            rank=rank, world_size=ranks,
+            timeout=datetime.timedelta(seconds=120))
+        try:
+            res = sharded_rank_run(Path(inputs))
+        finally:
+            dist.destroy_process_group()
+        (out / f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def run_world(backend: str, ranks: int, inputs: Path, workdir: Path):
+    """Spawn a world's ranks, wait for them (SHARDED_TIMEOUT_S in all) and
+    return each rank's results; a rank that fails or hangs fails the run,
+    and no rank outlives the call."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, backend, ranks, str(inputs), str(workdir)))
+             for r in range(ranks)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errs = {f.name: f.read_text() for f in sorted(workdir.glob("*.err"))}
+    codes = [p.exitcode for p in procs]
+    if hung or errs or any(codes):
+        raise AssertionError(
+            f"{backend} world of {ranks}: hung ranks {hung}, exit codes "
+            f"{codes}\n" + "\n".join(f"{k}:\n{v}" for k, v in errs.items()))
+    return [pickle.loads((workdir / f"rank{r}.pkl").read_bytes())
+            for r in range(ranks)]
+
+
+def phase_sharded(albums, smi: str) -> dict:
+    """glc_tpu_torch.parallel on the one card: encode_album_sharded and
+    decode_album_sharded of both albums and the round trip, in a gloo
+    world of 2 ranks (mesh 1 x 2), one of 4 (2 x 2) and an NCCL world of 1
+    (1 x 1), each rank computing on cuda:0.  `albums` maps seconds to the
+    album phase's items.  Returns world -> (per-rank launches, rows)."""
+    enc = Encoder(SAMPLE_RATE, device="cuda")
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    summary, mses = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = Path(tmp)
+        serial_walls = {}
+        for s, items in albums.items():
+            f32 = [album_f32(x) for x, _c in items]
+            serial = [enc.encode(x, 2) for x in f32]
+            for i, ((x, _c), ea) in enumerate(zip(items, serial)):
+                np.save(inputs / f"album{s}_{i}.npy", x)
+                (inputs / f"album{s}_{i}.glc").write_bytes(
+                    serialize_encoded(ea))
+                np.save(inputs / f"decoded{s}_{i}.npy", dec.decode(ea))
+            serial_walls[s] = (
+                _wall(lambda: [enc.encode(x, 2) for x in f32]),
+                _wall(lambda: [dec.decode(ea) for ea in serial]))
+        for backend, ranks in SHARDED_WORLDS:
+            workdir = inputs / f"{backend}{ranks}"
+            workdir.mkdir()
+            t0 = time.perf_counter()
+            per_rank = run_world(backend, ranks, inputs, workdir)
+            t_world = time.perf_counter() - t0
+            first = per_rank[0]
+            shape = mesh_shape(ranks)
+            want_rows = sharded_rows(ranks)
+            name = f"{backend} {ranks} rank{'s' if ranks > 1 else ''} {shape}"
+            if first["mesh"] != shape:
+                raise AssertionError(f"{name}: mesh {first['mesh']}")
+            if len({r["digest"] for r in per_rank}) != 1:
+                raise AssertionError(f"{name}: the ranks' results differ")
+            for r, res in enumerate(per_rank):
+                if res["rows"] != want_rows or res["launches"] != len(want_rows):
+                    raise AssertionError(
+                        f"{name} rank {r}: imdct_window launched "
+                        f"{res['launches']} times at rows {res['rows']}, "
+                        f"the geometry says {want_rows}")
+                LAUNCHED_ROWS.update(res["rows"])
+            mses[name] = first[ROUNDTRIP_COMMON]
+            summary[name] = {"launches": [r["launches"] for r in per_rank],
+                             "rows": want_rows}
+            how = ("no halo; the gathers through NCCL on the card"
+                   if backend == "nccl" else
+                   "the halo and the gathers through host memory")
+            d, f = shape
+            parts = []
+            for s, rows in zip(ALBUM_SECONDS, want_rows):
+                c = first[s]
+                flips = ""
+                if c["flips"]:
+                    track, pair, scales = c["first"]
+                    flips = (f", {len(c['flips'])} within the pair contract "
+                             f"(flip rates "
+                             f"{[round(x['rate'], 6) for x in c['flips']]}; "
+                             f"track {track}: first differing pair (frame, "
+                             f"channel, k, q sharded, q serial) {pair}, "
+                             f"{scales} scales differ)")
+                parts.append(
+                    f"{ALBUM_TRACKS} x {s} s: encode == serial "
+                    f"Encoder.encode bytes on {c['equal']}/{ALBUM_TRACKS} "
+                    f"tracks{flips} (MDCT rows: {rows} a rank vs the serial "
+                    f"segments' {serial_rows(s * SAMPLE_RATE * 2)}); decode "
+                    f"vs serial Decoder.decode max |diff| {c['max_err']:.3e} "
+                    f"(rtol 2e-6, atol 1e-7), bit for bit {c['bit_equal']}, "
+                    f"lengths == originals")
+            print(f"[sharded] {name}, shards on cuda:{first['device']} "
+                  f"({how}): " + "; ".join(parts) + f"; round trip mse "
+                  f"{first[(2 * d, 2 * f)]:.9f} at (B, K) = "
+                  f"{(2 * d, 2 * f)}, {mses[name]:.9f} at "
+                  f"{ROUNDTRIP_COMMON}; imdct_window launches per rank "
+                  f"{summary[name]['launches']} at rows {want_rows}; world "
+                  f"{t_world:.1f} s, spawn included")
+            print(f"[sharded] {name} ({smi}), one call each after a warm-up, "
+                  f"not claimed (the ranks share one card): " + "; ".join(
+                      f"{ALBUM_TRACKS} x {s} s encode_album_sharded "
+                      f"{first[s]['t_enc']:.4f} s, decode_album_sharded "
+                      f"{first[s]['t_dec']:.4f} s (serial loops: encode "
+                      f"{serial_walls[s][0]:.4f} s, decode "
+                      f"{serial_walls[s][1]:.4f} s)" for s in ALBUM_SECONDS))
+    ref = next(iter(mses.values()))
+    if any(abs(m - ref) > MSE_RTOL * abs(ref) for m in mses.values()):
+        raise AssertionError(f"round trip mse differs across worlds: {mses}")
+    print(f"[sharded] round trip mse at {ROUNDTRIP_COMMON} equal across "
+          f"worlds within {MSE_RTOL} relative: {mses}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1144,9 +1460,11 @@ def main() -> int:
     phase_flac_math(out)
     phase_stream(encoded, out)
     short = phase_album(ALBUM_SECONDS[0], smi)
-    _items, many, outs = phase_album(ALBUM_SECONDS[1], smi)
+    items, many, outs = phase_album(ALBUM_SECONDS[1], smi)
     phase_album_export(many, outs)
     phase_album_cli(short[0])
+    sharded = phase_sharded(
+        {ALBUM_SECONDS[0]: short[0], ALBUM_SECONDS[1]: items}, smi)
     phase_playback(many, outs, smi)
     phase_controller(short[0], short[1])
     phase_profile(encoded, out)
@@ -1174,6 +1492,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": lib_ms,
         "rows_checked": sorted(kern, reverse=True),
+        "sharded": sharded,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -88,6 +88,19 @@ def frame_signal(samples: np.ndarray, channels: int, cfg: CodecConfig,
     return padded, num_frames, padding, T
 
 
+def zero_extend(padded: np.ndarray, need: int) -> np.ndarray:
+    """Zero-extend the signal's sample axis to `need` (no-op when long
+    enough).  Copied from ``glc_tpu/codec/encoder.py``, where the serial
+    encoder and the sharded album framer share it; here the encoder pads
+    on the device (`planarize`) and only the album framer
+    (``parallel/album.py``) calls it, so the tests hold the two equal."""
+    if padded.shape[1] >= need:
+        return padded
+    ext = np.zeros((padded.shape[0], need), padded.dtype)
+    ext[:, : padded.shape[1]] = padded
+    return ext
+
+
 def frame_plan(total_samples: int, channels: int, cfg: CodecConfig):
     """Pure-arithmetic twin of `frame_signal`: (T, F, padding) without
     building any array.

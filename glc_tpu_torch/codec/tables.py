@@ -69,6 +69,16 @@ def get_codec_tables(n: int, frame_size: int, sample_rate: int,
     )
 
 
+def pow2_bucket(count: int, cap: int, floor: int = 16) -> int:
+    """Smallest power of two ≥ count (starting at `floor`), capped at `cap`.
+    Copied unchanged from ``glc_tpu/codec/tables.py``: it sets the frame
+    axis of the sharded album (``parallel/album.py``)."""
+    b = floor
+    while b < count and b < cap:
+        b *= 2
+    return min(b, cap)
+
+
 def len_bucket(x: int, bits: int = 4) -> int:
     """Smallest m·2^e ≥ x with 2^(bits−1) ≤ m < 2^bits (a `bits`-bit-mantissa
     ladder): overshoot ≤ 2^(1−bits), ≤ 2^(bits−1) distinct values per octave.

@@ -68,11 +68,40 @@ def _rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return out.view(*x.shape[:-1], table.shape[-1])
 
 
+# The CPU's BLAS picks its kernel, and how it splits the work among its
+# threads, by the row count of a product, so the same row can round
+# differently in products of different sizes.  The encode's products run
+# on the CPU in blocks of exactly this many rows instead.
+CPU_ROW_BLOCK = 64
+
+
+def fixed_rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """`_rows_matmul`, but on the CPU as products of exactly
+    `CPU_ROW_BLOCK` rows (the last block zero-padded), so that a row's
+    result does not depend on how many rows share the call, at a given
+    thread count.  A frame's encode then does not depend on the segment or
+    the shard it rides in: the sharded album encode writes the serial
+    encode's bytes, as the JAX package's does on XLA:CPU.  On CUDA it is
+    `_rows_matmul`."""
+    if x.device.type != "cpu":
+        return _rows_matmul(x, table)
+    rows = x.reshape(-1, x.shape[-1])
+    M, R = rows.shape[0], CPU_ROW_BLOCK
+    full = M - M % R
+    parts = [torch.matmul(rows[i : i + R], table) for i in range(0, full, R)]
+    if full < M:
+        last = rows.new_zeros((R, rows.shape[1]))
+        last[: M - full] = rows[full:]
+        parts.append(torch.matmul(last, table)[: M - full])
+    out = torch.cat(parts) if parts else rows.new_zeros((0, table.shape[-1]))
+    return out.view(*x.shape[:-1], table.shape[-1])
+
+
 def mdct(blocks: torch.Tensor, cos_table: torch.Tensor, norm) -> torch.Tensor:
     """Batched MDCT: [..., frame_size] -> [..., n] (codec.rs:358-374);
     `norm` applied to the product exactly as the reference applies it to
-    each dot product."""
-    return _rows_matmul(blocks, cos_table.T) * norm
+    each dot product.  Row-invariant on the CPU (`fixed_rows_matmul`)."""
+    return fixed_rows_matmul(blocks, cos_table.T) * norm
 
 
 def imdct(coeffs: torch.Tensor, cos_table: torch.Tensor, norm) -> torch.Tensor:

@@ -19,6 +19,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .mdct import fixed_rows_matmul
+
 # The reference caps the band list at 50 edges (codec.rs:154) and then appends
 # the final edge n (codec.rs:181) → at most 50 bands.
 MAX_BANDS = 50
@@ -145,7 +147,8 @@ def masking_thresholds(
 ) -> torch.Tensor:
     """Per-coefficient masking thresholds (reference src/codec.rs:186-240).
 
-    Band RMS energies via one matmul; thresholds broadcast back per bin;
+    Band RMS energies via one matmul (row-invariant on the CPU,
+    `fixed_rows_matmul`); thresholds broadcast back per bin;
     largest peaks (>30% of global max) get the threshold capped at 5% of the
     global max.  Matches the reference's f32 multiply association:
     ((energy * 0.01) * compression_factor) * perceptual_factor * individual.
@@ -156,7 +159,7 @@ def masking_thresholds(
         np.float32(max(1.0 - np.float32(quality), np.float32(0.01)))
     )
     sq = coeffs * coeffs
-    band_sq = torch.matmul(sq, band_mask.T)
+    band_sq = fixed_rows_matmul(sq, band_mask.T)
     energy = torch.sqrt(band_sq * band_inv_count)
     base = ((energy * 0.01) * compression_factor) * band_pf
     thr = base[..., band_of] * inv_w
