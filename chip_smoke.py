@@ -7,10 +7,14 @@ Phases, each printing its own line(s):
 
 1. device — torch version, card name, and the card's name and power limit
    from nvidia-smi;
-2. build  — builds (or loads) the hand-written imdct_window kernel from
-   glc_tpu_torch/csrc/ and prints the seconds it took, and the registers,
-   spills and shared memory the build gave it;
-3. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
+2. warmup — glc_tpu_torch.warmup() on the card, the first work in the process:
+   its seconds (the kernel library's nvcc build, one nvcc a source at
+   once, included and printed apart), the library loaded after it, and a
+   second call's seconds;
+3. build  — the three hand-written kernels of glc_tpu_torch/csrc/
+   (imdct_window, mdct_rows, band_energy): the registers, spills and
+   shared memory the build gave each;
+4. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
    PyTorch version at every edge of its 128-row tile (1, 63, 64, 65, 127,
    128, 129), at a ragged 1000, and at every row count the paths below
    launch it with (`path_rows`: each chunk's frames x 2 channels at the
@@ -27,34 +31,55 @@ Phases, each printing its own line(s):
    TF32 peak and the bytes at the HBM rate).  The decode's calls of the
    kernel are recorded by row count, and the run fails if a path launched
    it at a row count this phase did not check;
-4. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
+5. encode kernels — mdct_rows (3xTF32 wgmma fed by TMA) and band_energy
+   (one block a row, a compensated in-order sum a band), the encode's
+   row-invariant products, against their plain PyTorch versions at the
+   tile edges and at every row count the encode paths launch them with
+   (`encode_rows`: each segment's frames x channels of every encode below,
+   at every segment size, and each sharded rank's block): mdct_rows at
+   atol = rtol = 2e-5, band_energy at rtol 1e-5, both errors against a
+   float64 product, the kernel's no more than 2x the plain version's;
+   each launch's rows equal to the same rows of the largest launch; the
+   times (medians of 20, CUDA events) of each kernel, its plain version and
+   one library call (a full-f32 torch.matmul against the table with norm
+   folded in; one torch.einsum of the squares against the band mask), and
+   the bounds (`mdct_bound`, `band_bound`).  Their calls are recorded by
+   row count too;
+6. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
    envelopes, 5 s of white noise, 1 s of silence) through
    Encoder.encode_pcm16 → save_encoded → load_encoded →
-   Decoder.decode_i16 on the card, with the kernel's launch count read
-   around this run only;
-5. card vs CPU — the same input through the port on the CPU (plain
+   Decoder.decode_i16 on the card, with the kernels' launch counts read
+   around this run only (imdct_window one a decode chunk, mdct_rows and
+   band_energy one an encode segment); then encode_pcm16's wall, median of
+   11 after a warm-up;
+7. card vs CPU — the same input through the port on the CPU (plain
    versions): the containers agree within the pair contract
-   (glc_tpu_torch/parity.py) and decode_i16 of the card's container is
-   within 1 LSB on the card and on the CPU;
-6. native — the shared C++ runtime (native/, built with make on first
+   (glc_tpu_torch/parity.py), the flip rate printed, and decode_i16 of the
+   card's container is within 1 LSB on the card and on the CPU;
+8. invariance — the 180 s encode_pcm16 on the card at encode_chunk_frames
+   4096, 512 and 1000 (2, 16 and 8 segments): the same bytes;
+9. quality — bench.py's make_signal(5.0) and its quality_stereo_5s SNR
+   (copied here), compat and clean, on the card and through the port on
+   the CPU: within 0.2 dB of each other;
+10. native — the shared C++ runtime (native/, built with make on first
    use): says whether it was built or loaded, and fails without it or
    without its frame packer, so that the export below is the shipped path;
-7. export — the CLI's default decode on the 180 s container:
+11. export — the CLI's default decode on the 180 s container:
    decode_i16_stream(chunk_frames=1024) → encode_flac_i16_streaming(level
    5), timed after a warm-up call, with the kernel's launches of the timed
    call alone (one a chunk); the stream equals decode_i16 bit for bit, the
    bytes equal encode_flac_i16_with_level of decode_i16, and decode_flac
    gives back the samples, their format and their MD5;
-8. cli — glc_tpu_torch.cli.main on a 10 s excerpt: WAV → .glc, .glc → FLAC
+12. cli — glc_tpu_torch.cli.main on a 10 s excerpt: WAV → .glc, .glc → FLAC
    (the default), FLAC → .glc; the FLAC holds decode_i16 of the .glc and
    the container from the FLAC equals Encoder.encode_pcm16 of its samples;
-9. flac math — flac_block_stats on the card against its host twin, orders
+13. flac math — flac_block_stats on the card against its host twin, orders
    0-4, 4096-sample blocks at level 5's partition order, on the decoded
    180 s output: exactly equal;
-10. stream — decode_streaming on the card: 500-frame chunks but the last,
+14. stream — decode_streaming on the card: 500-frame chunks but the last,
    Progress ending in "complete", the trimmed concatenation equal to
    decode within 1e-6 and within 1 LSB of decode_i16;
-11. album — the multi-track paths at the JAX package's album shapes
+15. album — the multi-track paths at the JAX package's album shapes
    (bench.py:891-898, :958-), 4 x 15 s (one encode segment and one decode
    chunk a track) and 4 x 120 s (two encode segments and four decode
    chunks a track) of stereo int16, each track from its own seed:
@@ -69,22 +94,23 @@ Phases, each printing its own line(s):
    equal encode_flac_i16_with_level of the playlist and decode back to it;
    and the CLI encoding the four 15 s WAVs in one main([...]) call, through
    one encode_many, into the per-file containers;
-12. sharded — glc_tpu_torch.parallel on the one card, in three worlds of
+16. sharded — glc_tpu_torch.parallel on the one card, in three worlds of
    spawned ranks, each rank on cuda:0: gloo 2 ranks (mesh 1 x 2), gloo 4
    ranks (2 x 2; the halo and the gathers through host memory) and NCCL 1
    rank (1 x 1; the gathers on the card).  After a warm-up, each world
    runs encode_album_sharded and decode_album_sharded of both albums (the
    f32 tracks) and roundtrip_step_sharded at its dry-run shape and at
-   (4, 4).  Each container equals the serial Encoder.encode's bytes or
-   holds the pair contract (the flip rate, the first divergence and the
-   MDCT row counts of both sides printed); each decode is within rtol
+   (4, 4).  Each container equals the serial Encoder.encode's bytes (else
+   the flip rate, the first divergence and the MDCT row counts of both
+   sides are printed, and the run fails); each decode is within rtol
    2e-6, atol 1e-7 of the serial Decoder.decode, of the original length
    (bit for bit equality printed); the ranks' results agree; the mse at
-   (4, 4) agrees across worlds within 1e-6; each rank launches the kernel
-   at the rows `sharded_rows` predicts; the walls are printed beside the
+   (4, 4) agrees across worlds within 1e-6; each rank launches each of
+   the three kernels at the rows `sharded_rows` predicts; the walls are
+   printed beside the
    serial loops'.  A rank that fails, or a world not done in 300 s, fails
    the run;
-13. playback — playback.play_files_gapless of the 120 s album's .glc files
+17. playback — playback.play_files_gapless of the 120 s album's .glc files
    into a capture sink: one sink, the stream equal to the tracks'
    decode_streaming chunks bit for bit, each track's trimmed part within
    1e-6 of decode and 1 LSB of decode_i16, one launch a chunk; the time to
@@ -94,22 +120,34 @@ Phases, each printing its own line(s):
    written, no producer thread left, torch.cuda.synchronize() passes); and
    cli.main(["-p", ...]) and (["-p", "--ffplay", ...]) against a stub
    ffplay written into a temporary directory, whose bytes are the stream;
-14. controller — CodecController on two 15 s WAVs: encode_selected equals
+18. controller — CodecController on two 15 s WAVs: encode_selected equals
    encode_pcm16 byte for byte, play_gapless feeds the decode_streaming
    stream, export_playlist equals album.export_playlist_to_flac;
-15. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
+19. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
    container: each torch.profiler trace holds the decode_i16 span and one
    imdct_window kernel event a chunk; the traced and untraced walls; and
    one play_files_gapless of the 480 s album under profiling.trace: the
    device's busy time (kernels, copies, memsets) and idle share inside
    the call's span.
 
-Every path counts the kernel's launches from 0 just before it runs and
-checks them just after.  Then one JSON line with the kernel table (its
-launch count is the main path's; its times, library time and bound at
-B = 2816), and as the last line
+Every path counts the kernels' launches from 0 just before it runs and
+checks them just after, and the run fails if a path launched a kernel at
+a row count that phase 4 or 5 did not check.  Then one JSON line with the
+kernel table (launch counts from the main path; times, library time and
+bound at its rows: B = 2816 for imdct_window, M = 8192 for the encode's
+kernels), and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero;
 without a CUDA device the script exits 1 and prints no result.
+
+    python3 chip_smoke.py --encode-ab OTHER_CHECKOUT
+
+times encode_pcm16 of the 180 s signal in this checkout and in another
+(the parent commit's, say) instead, each in its own processes (`encode_ab`);
+
+    python3 chip_smoke.py --encode-kernels-ab
+
+times it in one process with the encode's kernels and with their plain
+versions in their place, in alternating pairs (`encode_kernels_ab`).
 """
 
 from __future__ import annotations
@@ -117,6 +155,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import hashlib
+import inspect
 import io
 import json
 import multiprocessing
@@ -128,6 +167,7 @@ import tempfile
 import threading
 import time
 import traceback
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -156,8 +196,13 @@ from glc_tpu_torch.flac.encoder import (
 from glc_tpu_torch.flac.ops import flac_block_stats, flac_block_stats_host
 from glc_tpu_torch.io.wav import convert_f32_to_i16, write_wav_i16
 from glc_tpu_torch.ops import decode as decode_ops
+from glc_tpu_torch.ops import mdct as mdct_ops
+from glc_tpu_torch.ops import psycho as psycho_ops
 from glc_tpu_torch.ops import kernels
-from glc_tpu_torch.ops.kernels import imdct_window, imdct_window_reference
+from glc_tpu_torch.ops.kernels import (
+    band_energy, band_energy_reference, imdct_window, imdct_window_reference,
+    mdct_rows, mdct_rows_reference,
+)
 from glc_tpu_torch.parallel.mesh import mesh_shape
 from glc_tpu_torch.parity import check_containers
 
@@ -169,7 +214,13 @@ from test_torch_album import launch_rows  # noqa: E402
 SAMPLE_RATE = 44100
 SECONDS = 180
 KERNEL_TOL = 2e-5
+BAND_RTOL = 1e-5       # sums of squares: positive, no cancellation
 KERNEL_EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
+KERNEL_NAMES = ("imdct_window", "mdct_rows", "band_energy")
+INVARIANCE_CHUNKS = (4096, 512, 1000)  # encode_chunk_frames of phase 8
+QUALITY_SECONDS = 5.0  # bench.py's quality_stereo_5s
+QUALITY_TOL_DB = 0.2   # card vs CPU SNR
+WARMUP_SECONDS = 60.0  # warmup()'s default
 CLI_SECONDS = 10
 ALBUM_TRACKS = 4
 ALBUM_SECONDS = (15, 120)
@@ -189,6 +240,7 @@ MSE_RTOL = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet, dense): TF32 on the tensor cores, the
 # unit that bounds an f32-accurate product on the card, and HBM3
 PEAK_TF32_FLOPS = 495e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -205,19 +257,52 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
-    """Builds the kernel; returns its design line for the kernel phase."""
+def phase_warmup():
+    """glc_tpu_torch.warmup() on the card, first in the process: it builds
+    the kernel library (the nvcc time is taken apart) and the native
+    runtime, or loads them.  Returns its seconds."""
     cached = kernels.library_path().exists()
-    t0 = time.perf_counter()
-    kernels.load_library()
-    secs = time.perf_counter() - t0
+    built = []
+    real_build = kernels._build
+
+    def timed_build(path):
+        built.append(_wall(lambda: real_build(path)))
+
+    kernels._build = timed_build
+    try:
+        t_cold = _wall(lambda: glc_tpu_torch.warmup(device="cuda"))
+    finally:
+        kernels._build = real_build
+    if kernels._lib is None:
+        raise AssertionError("warmup() left the kernel library unloaded")
+    if cached == bool(built):
+        raise AssertionError(f"library cached {cached}, builds {built}")
+    t_warm = _wall(lambda: glc_tpu_torch.warmup(device="cuda"))
+    how = (f"loaded from {kernels.library_path().name}" if cached else
+           f"built in {built[0]:.2f} s of it (nvcc, one a source at once)")
+    print(f"[warmup] warmup(device='cuda', {WARMUP_SECONDS:.0f} s stereo, "
+          f"FLAC) first in the process: {t_cold:.2f} s, the kernel library "
+          f"{how}, loaded after it: True; a second call {t_warm:.3f} s")
+    return t_cold
+
+
+def phase_build():
+    """The kernels' build (registers, spills, shared memory); returns a
+    design line per kernel for the kernel phases."""
     info = kernels.kernel_info()
-    print(f"[build] {kernels.library_path().name}: "
-          f"{'loaded' if cached else 'built'} in {secs:.2f} s")
-    return (f"3xTF32 wgmma, TMA, {info['stages']} stages; "
-            f"{info['registers']} regs/thread, {info['local_bytes']} B local, "
-            f"smem {info['static_smem']} B static + {info['dynamic_smem']} B "
+    designs = {}
+    for name in KERNEL_NAMES:
+        i = info[name]
+        how = ("one block a row, a compensated in-order sum a band"
+               if name == "band_energy" else
+               f"3xTF32 wgmma, TMA, {i['stages']} stages")
+        designs[name] = (
+            f"{how}; {i['registers']} regs/thread, {i['local_bytes']} B "
+            f"local, smem {i['static_smem']} B static + {i['dynamic_smem']} B "
             f"dynamic")
+        print(f"[build] {name} ({kernels.library_path().name}): "
+              f"{designs[name]}")
+    return designs
 
 
 def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -250,13 +335,16 @@ def path_rows(pcm: np.ndarray) -> list[int]:
     """The row counts the paths launch imdct_window with: every chunk's
     frames x its track's channels, at the decode and the stream chunk
     sizes, on the 180 s file, the CLI's 10 s excerpt, a stereo album track
-    of each length and the playback phase's mono track; and every
-    decode_many launch of the album phase."""
+    of each length, the playback phase's mono track, the quality phase's
+    5 s and warmup()'s 60 s; and every decode_many launch of the album
+    phase."""
     cfg = DEFAULT_CONFIG
     rows = set()
     tracks = [(len(pcm), 2), (CLI_SECONDS * SAMPLE_RATE * 2, 2),
               *((s * SAMPLE_RATE * 2, 2) for s in ALBUM_SECONDS),
-              (MONO_SECONDS * SAMPLE_RATE, 1)]
+              (MONO_SECONDS * SAMPLE_RATE, 1),
+              (int(QUALITY_SECONDS * SAMPLE_RATE) * 2, 2),
+              (int(WARMUP_SECONDS * SAMPLE_RATE) * 2, 2)]
     for samples, channels in tracks:
         F = frames_of(samples, channels)
         for max_chunk in (cfg.decode_chunk_frames, cfg.stream_chunk_frames):
@@ -289,20 +377,61 @@ def sharded_rows(ranks: int) -> list[int]:
     return rows + [2 * 2, (B // d) * (K // f)]
 
 
-LAUNCHED_ROWS: set[int] = set()
+def encode_rows(pcm: np.ndarray) -> list[int]:
+    """The row counts the encode paths launch mdct_rows and band_energy
+    with: each segment's frames x channels (`serial_rows`) of the 180 s
+    file at every segment size of the invariance phase, the 10 s excerpt
+    (the main path's warm-up, the CLI), the album tracks, the mono track,
+    the quality phase's 5 s and warmup()'s 60 s; and each sharded rank's
+    block, whose rows are its decode's (`sharded_rows`)."""
+    cfg = DEFAULT_CONFIG
+    tracks = [(len(pcm), 2), (CLI_SECONDS * SAMPLE_RATE * 2, 2),
+              *((s * SAMPLE_RATE * 2, 2) for s in ALBUM_SECONDS),
+              (MONO_SECONDS * SAMPLE_RATE, 1),
+              (int(QUALITY_SECONDS * SAMPLE_RATE) * 2, 2),
+              (int(WARMUP_SECONDS * SAMPLE_RATE) * 2, 2)]
+    rows = set()
+    for samples, channels in tracks:
+        rows.update(serial_rows(samples, channels))
+    for k in INVARIANCE_CHUNKS:
+        rows.update(serial_rows(len(pcm), 2,
+                                replace(cfg, encode_chunk_frames=k)))
+    for _backend, ranks in SHARDED_WORLDS:
+        rows.update(sharded_rows(ranks))
+    return sorted(rows, reverse=True)
 
 
-def record_launch_rows(record=LAUNCHED_ROWS.add):
-    """Route the decode's calls of the kernel wrapper through `record` of
-    their row counts; the wrapper itself, and its launch count, stay as
-    they are."""
-    wrapper = decode_ops.imdct_window
+# kernel -> the row counts the paths launched it with
+LAUNCHED_ROWS: dict[str, set[int]] = {name: set() for name in KERNEL_NAMES}
 
-    def recorded(coeffs, *args):
-        record(coeffs.shape[0])
-        return wrapper(coeffs, *args)
 
-    decode_ops.imdct_window = recorded
+def record_launch_rows(
+        record=lambda name, rows: LAUNCHED_ROWS[name].add(rows)):
+    """Route the paths' calls of the three kernel wrappers through
+    `record(kernel, row count)`; the wrappers themselves, and their launch
+    counts, stay as they are (the kernel phases call them directly)."""
+    def wrap(module, name):
+        wrapper = getattr(module, name)
+
+        def recorded(rows, *args):
+            record(name, rows.shape[0])
+            return wrapper(rows, *args)
+
+        setattr(module, name, recorded)
+
+    wrap(decode_ops, "imdct_window")
+    wrap(mdct_ops, "mdct_rows")
+    wrap(psycho_ops, "band_energy")
+
+
+def reset_launches() -> None:
+    for fn in (imdct_window, mdct_rows, band_energy):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches
+            for fn in (imdct_window, mdct_rows, band_energy)}
 
 
 def kernel_bound(B: int, n: int) -> tuple[float, str]:
@@ -310,12 +439,108 @@ def kernel_bound(B: int, n: int) -> tuple[float, str]:
     and what sets it: the FLOPs of the one f32 product (2·B·n·2n) at the
     TF32 tensor-core peak against the bytes of each input read once
     (coeffs, table, window) and the output written once, at the HBM rate."""
-    flops = 2.0 * B * n * 2 * n
-    nbytes = 4.0 * (B * n + n * 2 * n + 2 * n + B * 2 * n)
-    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return _bound(2.0 * B * n * 2 * n, PEAK_TF32_FLOPS,
+                  4.0 * (B * n + n * 2 * n + 2 * n + B * 2 * n))
+
+
+def _bound(flops: float, flop_peak: float, nbytes: float) -> tuple[float, str]:
+    """The larger of the operations' time at `flop_peak` and the bytes'
+    at the HBM rate, in ms, and which one it is."""
+    t_ops, t_bytes = flops / flop_peak, nbytes / PEAK_HBM_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def mdct_bound(M: int, n: int) -> tuple[float, str]:
+    """mdct_rows on M rows: the one f32 product's FLOPs (2·M·2n·n) at the
+    TF32 peak against win, the table and the output moved once."""
+    return _bound(2.0 * M * 2 * n * n, PEAK_TF32_FLOPS,
+                  4.0 * (M * 2 * n + n * 2 * n + M * n))
+
+
+def band_bound(M: int, n: int, bands: int) -> tuple[float, str]:
+    """band_energy on M rows: 2·M·n f32 operations (a square and an add a
+    bin) at the CUDA cores' f32 peak against coeffs, the band mask and the
+    output moved once."""
+    return _bound(2.0 * M * n, PEAK_FP32_FLOPS,
+                  4.0 * (M * n + bands * n + M * bands))
+
+
+def phase_encode_kernels(tables, designs: dict, rows):
+    """mdct_rows and band_energy against their plain versions at each row
+    count, their row invariance, and the times of the kernel, the plain
+    version and one library call beside the bound.  Returns
+    {kernel: {M: (max|kernel-plain|, ms, plain ms, library ms, bound ms,
+    bound by)}}."""
+    n = tables.n
+    bands = tables.band_mask.shape[0]
+    rng = np.random.default_rng(2)
+    M_max = max(rows)
+    win_all = torch.from_numpy(
+        (rng.standard_normal((M_max, 2 * n)) * 0.1).astype(np.float32)
+    ).cuda() * tables.window
+    coeffs_all = mdct_rows(win_all, tables.cos_table, tables.norm)
+    sums_all = band_energy(coeffs_all, tables.band_mask)
+    table64 = tables.cos_table.double()
+    mask64 = tables.band_mask.double()
+    table_norm = (tables.cos_table * tables.norm).T.contiguous()
+    result = {"mdct_rows": {}, "band_energy": {}}
+    for M in rows:
+        win = win_all[M_max - M :].contiguous()  # the last M rows
+        coeffs = mdct_rows(win, tables.cos_table, tables.norm)
+        ref = mdct_rows_reference(win, tables.cos_table, tables.norm)
+        lib = torch.matmul(win, table_norm)
+        sums = band_energy(coeffs, tables.band_mask)
+        sums_ref = band_energy_reference(coeffs, tables.band_mask)
+        sums_lib = torch.einsum("mk,mk,bk->mb", coeffs, coeffs,
+                                tables.band_mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(coeffs, coeffs_all[M_max - M :])
+                and torch.equal(sums, sums_all[M_max - M :])):
+            raise AssertionError(f"M={M}: rows differ from the same rows of "
+                                 f"the {M_max}-row launch")
+        checks = (
+            ("mdct_rows", coeffs, ref, lib,
+             (win.double() @ table64.T) * tables.norm_value,
+             dict(atol=KERNEL_TOL, rtol=KERNEL_TOL)),
+            ("band_energy", sums, sums_ref, sums_lib,
+             coeffs.double() ** 2 @ mask64.T, dict(atol=0.0, rtol=BAND_RTOL)),
+        )
+        for name, out, plain, library, exact, tol in checks:
+            errs = [(t.double() - exact).abs().max().item()
+                    for t in (out, plain, library)]
+            diff = (out - plain).abs().max().item()
+            torch.testing.assert_close(out, plain, **tol)
+            if errs[0] > 2 * errs[1]:
+                raise AssertionError(
+                    f"{name} M={M}: error vs float64 {errs[0]:.3e} exceeds "
+                    f"twice the plain version's {errs[1]:.3e}")
+            if name == "mdct_rows":
+                args = (win, tables.cos_table, tables.norm)
+                times = [_median_ms(lambda: mdct_rows(*args)),
+                         _median_ms(lambda: mdct_rows_reference(*args)),
+                         _median_ms(lambda: torch.matmul(win, table_norm))]
+                bound = mdct_bound(M, n)
+                lib_name = "torch.matmul, norm folded into the table"
+            else:
+                args = (coeffs, tables.band_mask)
+                times = [_median_ms(lambda: band_energy(*args)),
+                         _median_ms(lambda: band_energy_reference(*args)),
+                         _median_ms(lambda: torch.einsum(
+                             "mk,mk,bk->mb", coeffs, coeffs,
+                             tables.band_mask))]
+                bound = band_bound(M, n, bands)
+                lib_name = "torch.einsum of the squares and the mask"
+            print(f"[encode kernels] {name} ({designs[name]}) M={M}: "
+                  f"max|kernel-plain| {diff:.3e} ({tol}); vs float64: kernel "
+                  f"{errs[0]:.3e}, plain {errs[1]:.3e}, library "
+                  f"{errs[2]:.3e}; == the rows of the {M_max}-row launch; "
+                  f"median of 20: kernel {times[0]:.4f} ms, plain "
+                  f"{times[1]:.4f} ms, library ({lib_name}) {times[2]:.4f} "
+                  f"ms; bound {bound[0]:.4f} ms ({bound[1]})")
+            result[name][M] = (diff, *times, *bound)
+    return result
 
 
 def phase_kernel(tables, design: str, rows):
@@ -405,12 +630,13 @@ def main_path(pcm: np.ndarray, device: str):
     return loaded, out, t_enc, t_dec
 
 
-def phase_main(pcm: np.ndarray):
+def phase_main(pcm: np.ndarray, smi: str):
     cfg = DEFAULT_CONFIG
-    main_path(pcm[: 10 * SAMPLE_RATE * 2], "cuda")  # warm-up
-    imdct_window.launches = 0
+    main_path(pcm[: CLI_SECONDS * SAMPLE_RATE * 2], "cuda")  # warm-up
+    reset_launches()
     encoded, out, t_enc, t_dec = main_path(pcm, "cuda")
-    launches = imdct_window.launches
+    counts = launch_counts()
+    launches = counts["imdct_window"]
 
     F = encoded.frame_set.num_frames
     _T, F_plan, _pad, plan, _need = upload_geometry(len(pcm), 2, cfg)
@@ -425,6 +651,9 @@ def phase_main(pcm: np.ndarray):
     if launches != chunks:
         raise AssertionError(
             f"imdct_window launched {launches} times for {chunks} chunks")
+    if counts["mdct_rows"] != len(plan) or counts["band_energy"] != len(plan):
+        raise AssertionError(f"the encode's kernels launched {counts} for "
+                             f"{len(plan)} segments")
     audio_s = len(pcm) / 2 / SAMPLE_RATE
     print(f"[main] {audio_s:.0f} s stereo: {F} frames, segments "
           f"{[k for _s, k in plan]}, {raw_frames} raw frames, "
@@ -432,8 +661,105 @@ def phase_main(pcm: np.ndarray):
           f"== input")
     print(f"[main] encode_pcm16 {t_enc:.3f} s ({audio_s / t_enc:.1f}x "
           f"realtime); decode_i16 {t_dec:.3f} s ({audio_s / t_dec:.1f}x "
-          f"realtime); imdct_window launches {launches} == {chunks} chunks")
-    return encoded, out, launches
+          f"realtime); imdct_window launches {launches} == {chunks} chunks; "
+          f"mdct_rows and band_energy launches {counts['mdct_rows']}, "
+          f"{counts['band_energy']} == {len(plan)} segments")
+    walls = encode_walls(pcm, Encoder)
+    print(f"[main] encode_pcm16 of {audio_s:.0f} s ({smi}), median of "
+          f"{WALL_RUNS} after a warm-up: {np.median(walls) * 1e3:.2f} ms "
+          f"(runs {min(walls) * 1e3:.2f}-{max(walls) * 1e3:.2f} ms)")
+    return encoded, out, counts
+
+
+def encode_walls(pcm: np.ndarray, encoder_cls) -> list[float]:
+    """WALL_RUNS walls (s) of encode_pcm16 of the stereo `pcm` on the card,
+    after a warm-up call."""
+    enc = encoder_cls(SAMPLE_RATE, device="cuda")
+    enc.encode_pcm16(pcm, 2)
+    walls = []
+    for _ in range(WALL_RUNS):
+        t0 = time.perf_counter()
+        enc.encode_pcm16(pcm, 2)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+# One process of the encode A/B: the checkout in argv[1] first on the path,
+# then this script's signal and timing, copied in (the checkout may be one
+# whose package lacks names this script imports).
+_AB_CHILD = """
+import json, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import glc_tpu_torch
+from glc_tpu_torch import Encoder
+assert glc_tpu_torch.__file__.startswith(sys.argv[1]), glc_tpu_torch.__file__
+SAMPLE_RATE, SECONDS, WALL_RUNS = {rate}, {seconds}, {runs}
+{make_signal}
+{encode_walls}
+print(json.dumps(encode_walls(make_signal(), Encoder)))
+"""
+
+
+def encode_ab(other: Path, smi: str, rounds: int = 2) -> None:
+    """encode_pcm16 of the 180 s signal on the card, this checkout against
+    the checkout `other` (the parent commit, say), each in its own
+    process, `rounds` times in the order other, this, this, other:
+    WALL_RUNS walls a process after a warm-up call."""
+    child = _AB_CHILD.format(
+        rate=SAMPLE_RATE, seconds=SECONDS, runs=WALL_RUNS,
+        make_signal=inspect.getsource(make_signal),
+        encode_walls=inspect.getsource(encode_walls))
+    here = Path(__file__).resolve().parent
+    walls = {}
+    for root in (other, here, here, other) * rounds:
+        proc = subprocess.run([sys.executable, "-c", child, str(root)],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"encode A/B in {root}:\n{proc.stderr}")
+        walls.setdefault(root, []).append(json.loads(proc.stdout.splitlines()[-1]))
+    for root, runs in walls.items():
+        print(f"[encode A/B] {root} ({smi}): encode_pcm16 of {SECONDS} s, "
+              f"medians of {WALL_RUNS} in its {len(runs)} processes "
+              + ", ".join(f"{np.median(w) * 1e3:.2f} ms (runs "
+                          f"{min(w) * 1e3:.2f}-{max(w) * 1e3:.2f})"
+                          for w in runs))
+
+
+def encode_kernels_ab(smi: str, pairs: int = 21) -> None:
+    """In one process, encode_pcm16 of the 180 s signal with the encode's
+    kernels against the same encode with mdct_rows and band_energy swapped
+    for their plain versions (the parent commit's cuBLAS products),
+    `pairs` alternating pairs after a warm-up of each."""
+    pcm = make_signal()
+    enc = Encoder(SAMPLE_RATE, device="cuda")
+    arms = {"kernels": (mdct_ops.mdct_rows, psycho_ops.band_energy),
+            "plain": (mdct_rows_reference, band_energy_reference)}
+
+    def wall(arm: str) -> float:
+        mdct_ops.mdct_rows, psycho_ops.band_energy = arms[arm]
+        try:
+            return _wall(lambda: enc.encode_pcm16(pcm, 2))
+        finally:
+            mdct_ops.mdct_rows, psycho_ops.band_energy = arms["kernels"]
+
+    walls = {arm: [] for arm in arms}
+    for arm in arms:
+        wall(arm)
+    for i in range(pairs):
+        for arm in (("kernels", "plain") if i % 2 else ("plain", "kernels")):
+            walls[arm].append(wall(arm))
+    won = sum(k < p for k, p in zip(walls["kernels"], walls["plain"]))
+    print(f"[encode kernels A/B] encode_pcm16 of {SECONDS} s in one process "
+          f"({smi}), {pairs} alternating pairs: with the kernels median "
+          f"{np.median(walls['kernels']) * 1e3:.2f} ms (quartiles "
+          f"{np.percentile(walls['kernels'], 25) * 1e3:.2f}-"
+          f"{np.percentile(walls['kernels'], 75) * 1e3:.2f}), with the plain "
+          f"versions {np.median(walls['plain']) * 1e3:.2f} ms (quartiles "
+          f"{np.percentile(walls['plain'], 25) * 1e3:.2f}-"
+          f"{np.percentile(walls['plain'], 75) * 1e3:.2f}); the kernels "
+          f"faster in {won} of {pairs} pairs")
 
 
 def phase_cpu(pcm: np.ndarray, encoded_cuda, out_cuda):
@@ -450,6 +776,88 @@ def phase_cpu(pcm: np.ndarray, encoded_cuda, out_cuda):
           f"(rate {flips['rate']:.5%}, max |dq| {flips['max_dq']}); "
           f"decode_i16 card vs CPU: max {int(d.max())} LSB on "
           f"{int(np.count_nonzero(d))} of {len(d)} samples")
+
+
+def phase_invariance(pcm: np.ndarray, encoded):
+    """The 180 s encode_pcm16 on the card at every segment size of
+    INVARIANCE_CHUNKS: the same bytes (tests/test_chunking.py:11-32 asks
+    it of the JAX package), each segment one launch of each encode
+    kernel."""
+    want = serialize_encoded(encoded)
+    parts = []
+    for k in INVARIANCE_CHUNKS:
+        cfg = replace(DEFAULT_CONFIG, encode_chunk_frames=k)
+        plan = upload_geometry(len(pcm), 2, cfg)[3]
+        reset_launches()
+        data = serialize_encoded(
+            Encoder(SAMPLE_RATE, config=cfg, device="cuda").encode_pcm16(pcm, 2))
+        counts = launch_counts()
+        if data != want:
+            raise AssertionError(f"encode_chunk_frames={k}: the container "
+                                 f"differs from the main path's")
+        if counts["mdct_rows"] != len(plan) or counts["band_energy"] != len(plan):
+            raise AssertionError(f"encode_chunk_frames={k}: launches {counts} "
+                                 f"for {len(plan)} segments")
+        parts.append(f"{k}: {len(plan)} segments of rows "
+                     f"{sorted(set(serial_rows(len(pcm), 2, cfg)), reverse=True)}")
+    print(f"[invariance] encode_pcm16 of {len(pcm) // 2 // SAMPLE_RATE} s on "
+          f"the card at encode_chunk_frames " + "; ".join(parts) + ": the "
+          f"same {len(want)} bytes at every size, one mdct_rows and one "
+          f"band_energy launch a segment")
+
+
+def quality_signal(duration_s: float = QUALITY_SECONDS,
+                   sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """bench.py:82-107 make_signal, copied: stereo program-like material
+    (chord + sweep + noise bed), interleaved f32."""
+    t = np.arange(int(sample_rate * duration_s), dtype=np.float32) / sample_rate
+    ts = np.mod(t, np.float32(60.0))
+    left = (
+        0.30 * np.sin(2 * np.pi * 261.63 * t)
+        + 0.20 * np.sin(2 * np.pi * 329.63 * t)
+        + 0.15 * np.sin(2 * np.pi * (440.0 + 100.0 * ts) * ts)
+    )
+    rng = np.random.default_rng(1234)
+    noise = rng.standard_normal(len(t)).astype(np.float32) * 0.01
+    right = left * 0.9 + noise
+    out = np.empty(2 * len(t), np.float32)
+    out[0::2] = left + noise
+    out[1::2] = right
+    return out
+
+
+def quality_snr(sig: np.ndarray, out: np.ndarray) -> float:
+    """bench.py:843-852, copied: the SNR over the interleaved samples, 1000
+    samples skipped at each end."""
+    n = min(len(out), len(sig))
+    sl = slice(1000, n - 1000)
+    a, b = sig[:n][sl].astype(np.float64), out[:n][sl].astype(np.float64)
+    err = a - b
+    return 10.0 * np.log10(np.sum(a * a) / max(np.sum(err * err), 1e-20))
+
+
+def phase_quality(smi: str):
+    """quality_stereo_5s: compat and clean SNR on the card and through the
+    port on the CPU, in this run."""
+    sig = quality_signal()
+    snr = {}
+    for mode, cfg in (("compat", DEFAULT_CONFIG),
+                      ("clean", replace(DEFAULT_CONFIG,
+                                        reference_compat=False))):
+        for device in ("cuda", "cpu"):
+            enc = Encoder(SAMPLE_RATE, config=cfg, device=device)
+            dec = Decoder(2, SAMPLE_RATE, config=cfg, device=device)
+            snr[mode, device] = quality_snr(sig, dec.decode(enc.encode(sig, 2)))
+        gap = abs(snr[mode, "cuda"] - snr[mode, "cpu"])
+        if not np.isfinite(snr[mode, "cuda"]) or gap > QUALITY_TOL_DB:
+            raise AssertionError(f"quality {mode}: card {snr[mode, 'cuda']} "
+                                 f"dB, CPU {snr[mode, 'cpu']} dB")
+    print(f"[quality] quality_stereo_5s (bench.py's signal and SNR) on the "
+          f"card ({smi}) vs the port on the CPU: compat "
+          f"{snr['compat', 'cuda']:.4f} vs {snr['compat', 'cpu']:.4f} dB, "
+          f"clean {snr['clean', 'cuda']:.4f} vs {snr['clean', 'cpu']:.4f} dB "
+          f"(within {QUALITY_TOL_DB} dB)")
+    return snr
 
 
 def phase_native():
@@ -1183,11 +1591,12 @@ def album_f32(pcm: np.ndarray) -> np.ndarray:
     return pcm.astype(np.float32) / np.float32(32768.0)
 
 
-def serial_rows(samples: int) -> list[int]:
-    """The MDCT row counts of the serial encode of a stereo track of
-    `samples` interleaved samples: each segment's frames x 2."""
-    _T, F, _pad, plan, _need = upload_geometry(samples, 2, DEFAULT_CONFIG)
-    return [2 * min(k, F - start) for start, k in plan]
+def serial_rows(samples: int, channels: int = 2,
+                cfg=DEFAULT_CONFIG) -> list[int]:
+    """The MDCT row counts of the serial encode of a track of `samples`
+    interleaved samples: each segment's frames x channels."""
+    _T, F, _pad, plan, _need = upload_geometry(samples, channels, cfg)
+    return [channels * min(k, F - start) for start, k in plan]
 
 
 def check_sharded_album(inputs: Path, seconds: int, encs, outs,
@@ -1258,9 +1667,9 @@ def sharded_rank_run(inputs: Path) -> dict:
     warm = ALBUM_SECONDS[0]
     parallel.encode_album_sharded(mesh, tracks[warm], 2, SAMPLE_RATE)
     parallel.decode_album_sharded(mesh, serial[warm])
-    rows: list = []
-    record_launch_rows(rows.append)
-    imdct_window.launches = 0
+    rows: dict = {name: [] for name in KERNEL_NAMES}
+    record_launch_rows(lambda name, m: rows[name].append(m))
+    reset_launches()
     res = {"mesh": tuple(mesh.shape),
            "device": str(torch.cuda.current_device())}
     digest = hashlib.sha256()
@@ -1291,8 +1700,7 @@ def sharded_rank_run(inputs: Path) -> dict:
                                  f"hops {tuple(hops.shape)}")
         res[(B, K)] = float(mse)
         digest.update(hops.cpu().numpy().tobytes())
-    res.update(launches=imdct_window.launches, rows=rows,
-               digest=digest.hexdigest())
+    res.update(launches=launch_counts(), rows=rows, digest=digest.hexdigest())
     return res
 
 
@@ -1355,7 +1763,7 @@ def phase_sharded(albums, smi: str) -> dict:
     album phase's items.  Returns world -> (per-rank launches, rows)."""
     enc = Encoder(SAMPLE_RATE, device="cuda")
     dec = Decoder(2, SAMPLE_RATE, device="cuda")
-    summary, mses = {}, {}
+    summary, mses, unequal = {}, {}, []
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp)
         serial_walls = {}
@@ -1385,14 +1793,18 @@ def phase_sharded(albums, smi: str) -> dict:
             if len({r["digest"] for r in per_rank}) != 1:
                 raise AssertionError(f"{name}: the ranks' results differ")
             for r, res in enumerate(per_rank):
-                if res["rows"] != want_rows or res["launches"] != len(want_rows):
-                    raise AssertionError(
-                        f"{name} rank {r}: imdct_window launched "
-                        f"{res['launches']} times at rows {res['rows']}, "
-                        f"the geometry says {want_rows}")
-                LAUNCHED_ROWS.update(res["rows"])
+                for kernel in KERNEL_NAMES:
+                    got = res["rows"][kernel]
+                    if got != want_rows or res["launches"][kernel] != len(got):
+                        raise AssertionError(
+                            f"{name} rank {r}: {kernel} launched "
+                            f"{res['launches'][kernel]} times at rows {got}, "
+                            f"the geometry says {want_rows}")
+                    LAUNCHED_ROWS[kernel].update(got)
             mses[name] = first[ROUNDTRIP_COMMON]
-            summary[name] = {"launches": [r["launches"] for r in per_rank],
+            summary[name] = {"launches": [[r["launches"][k]
+                                           for k in KERNEL_NAMES]
+                                          for r in per_rank],
                              "rows": want_rows}
             how = ("no halo; the gathers through NCCL on the card"
                    if backend == "nccl" else
@@ -1410,6 +1822,8 @@ def phase_sharded(albums, smi: str) -> dict:
                              f"track {track}: first differing pair (frame, "
                              f"channel, k, q sharded, q serial) {pair}, "
                              f"{scales} scales differ)")
+                    unequal.append(f"{name} {s} s: {c['equal']}/"
+                                   f"{ALBUM_TRACKS} tracks byte-equal{flips}")
                 parts.append(
                     f"{ALBUM_TRACKS} x {s} s: encode == serial "
                     f"Encoder.encode bytes on {c['equal']}/{ALBUM_TRACKS} "
@@ -1422,7 +1836,8 @@ def phase_sharded(albums, smi: str) -> dict:
                   f"({how}): " + "; ".join(parts) + f"; round trip mse "
                   f"{first[(2 * d, 2 * f)]:.9f} at (B, K) = "
                   f"{(2 * d, 2 * f)}, {mses[name]:.9f} at "
-                  f"{ROUNDTRIP_COMMON}; imdct_window launches per rank "
+                  f"{ROUNDTRIP_COMMON}; launches per rank of each kernel "
+                  f"(imdct_window, mdct_rows, band_energy) "
                   f"{summary[name]['launches']} at rows {want_rows}; world "
                   f"{t_world:.1f} s, spawn included")
             print(f"[sharded] {name} ({smi}), one call each after a warm-up, "
@@ -1432,6 +1847,9 @@ def phase_sharded(albums, smi: str) -> dict:
                       f"{first[s]['t_dec']:.4f} s (serial loops: encode "
                       f"{serial_walls[s][0]:.4f} s, decode "
                       f"{serial_walls[s][1]:.4f} s)" for s in ALBUM_SECONDS))
+    if unequal:
+        raise AssertionError("sharded album encode != serial Encoder.encode: "
+                             + "; ".join(unequal))
     ref = next(iter(mses.values()))
     if any(abs(m - ref) > MSE_RTOL * abs(ref) for m in mses.values()):
         raise AssertionError(f"round trip mse differs across worlds: {mses}")
@@ -1440,21 +1858,37 @@ def phase_sharded(albums, smi: str) -> dict:
     return summary
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name, smi = phase_device()
-    design = phase_build()
+    if argv[:1] == ["--encode-ab"] and len(argv) == 2:
+        encode_ab(Path(argv[1]).resolve(), smi)
+        return 0
+    if argv == ["--encode-kernels-ab"]:
+        encode_kernels_ab(smi)
+        return 0
+    if argv:
+        print("usage: python3 chip_smoke.py [--encode-ab OTHER_CHECKOUT | "
+              "--encode-kernels-ab]", file=sys.stderr)
+        return 2
+    record_launch_rows()
+    phase_warmup()
+    designs = phase_build()
     phase_native()
     tables = get_codec_tables(1024, 2048, SAMPLE_RATE, "cuda")
     pcm = make_signal()
-    kern = phase_kernel(tables, design,
-                        sorted(set(path_rows(pcm)) | set(KERNEL_EDGES),
-                               reverse=True))
-    record_launch_rows()
-    encoded, out, launches = phase_main(pcm)
+    kern = {"imdct_window": phase_kernel(
+        tables, designs["imdct_window"],
+        sorted(set(path_rows(pcm)) | set(KERNEL_EDGES), reverse=True))}
+    kern.update(phase_encode_kernels(
+        tables, designs,
+        sorted(set(encode_rows(pcm)) | set(KERNEL_EDGES), reverse=True)))
+    encoded, out, launches = phase_main(pcm, smi)
     phase_cpu(pcm, encoded, out)
+    phase_invariance(pcm, encoded)
+    phase_quality(smi)
     phase_export(encoded, out)
     phase_cli(pcm)
     phase_flac_math(out)
@@ -1469,31 +1903,48 @@ def main() -> int:
     phase_controller(short[0], short[1])
     phase_profile(encoded, out)
     phase_play_profile(many, smi)
-    unchecked = LAUNCHED_ROWS - set(kern)
-    if not LAUNCHED_ROWS or unchecked:
-        raise AssertionError(f"imdct_window launched at rows "
-                             f"{sorted(unchecked)} not checked against plain")
-    print(f"[kernel] the paths launched imdct_window at rows "
-          f"{sorted(LAUNCHED_ROWS, reverse=True)}, each checked against the "
-          f"plain version above")
+    for kernel in KERNEL_NAMES:
+        unchecked = LAUNCHED_ROWS[kernel] - set(kern[kernel])
+        if not LAUNCHED_ROWS[kernel] or unchecked:
+            raise AssertionError(f"{kernel} launched at rows "
+                                 f"{sorted(unchecked)} not checked against "
+                                 f"plain")
+        print(f"[kernel] the paths launched {kernel} at rows "
+              f"{sorted(LAUNCHED_ROWS[kernel], reverse=True)}, each checked "
+              f"against the plain version above")
 
-    _diff, ms, plain_ms, lib_ms, bound_ms, bound_by = kern[
-        2 * DEFAULT_CONFIG.decode_chunk_frames]
-    print(json.dumps({"kernels": [{
-        "name": "imdct_window",
-        "route": "cuda",
-        "source": "glc_tpu_torch/csrc/imdct_window.cu",
-        "replaces": "glc_tpu/ops/pallas_kernels.py:47",
-        "launches": launches,
-        "max_abs_err": max(k[0] for k in kern.values()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": lib_ms,
-        "rows_checked": sorted(kern, reverse=True),
-        "sharded": sharded,
-    }]}))
+    # kernel: (source, what it replaces, the main path's rows to report)
+    table = {
+        "imdct_window": ("glc_tpu_torch/csrc/imdct_window.cu",
+                         "glc_tpu/ops/pallas_kernels.py:47",
+                         2 * DEFAULT_CONFIG.decode_chunk_frames),
+        "mdct_rows": ("glc_tpu_torch/csrc/mdct_rows.cu",
+                      "glc_tpu/ops/mdct.py:67 (XLA einsum, not a Pallas "
+                      "kernel)", 2 * DEFAULT_CONFIG.encode_chunk_frames),
+        "band_energy": ("glc_tpu_torch/csrc/band_energy.cu",
+                        "glc_tpu/ops/psycho.py:155 (XLA einsum, not a "
+                        "Pallas kernel)", 2 * DEFAULT_CONFIG.encode_chunk_frames),
+    }
+    entries = []
+    for kernel, (source, replaces, rows) in table.items():
+        _diff, ms, plain_ms, lib_ms, bound_ms, bound_by = kern[kernel][rows]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[kernel],
+            "max_abs_err": max(k[0] for k in kern[kernel].values()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "rows": rows,
+            "rows_checked": sorted(kern[kernel], reverse=True),
+        })
+    entries[0]["sharded"] = sharded
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count(),
@@ -1502,4 +1953,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

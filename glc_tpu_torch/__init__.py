@@ -8,10 +8,13 @@ the same public names:
     encoded = enc.encode_pcm16(pcm16, channels=2)
     pcm = Decoder(2, 44100, device="cuda").decode_i16(encoded)
 
-The device math is eager torch ops plus one hand-written CUDA kernel, the
-fused IMDCT+window of the decode path (``ops/kernels.py``,
-``csrc/imdct_window.cu``).  The package imports neither JAX nor
-``glc_tpu``; the numpy-only host modules it needs are copies.
+The device math is eager torch ops plus three hand-written CUDA kernels
+(``ops/kernels.py``, ``csrc/``): the decode's fused IMDCT+window, and the
+encode's MDCT and band energies, which compute each frame alike however
+the frames are cut into segments or shards.  ``warmup()`` pays a fresh
+process's one-time costs on the card before the first real call.  The
+package imports neither JAX nor ``glc_tpu``; the numpy-only host modules
+it needs are copies.
 
 Importing the package turns TF32 off for matmuls and cuDNN and asks for
 "highest" f32 matmul precision: the counterpart of the JAX package's
@@ -36,6 +39,7 @@ from .container.schema import (
 from .container.bincode import save_encoded, load_encoded, serialize_encoded, deserialize_encoded
 from .codec.encoder import Encoder
 from .codec.decoder import Decoder
+from .warmup import warmup
 
 __version__ = "0.5.0"
 
@@ -55,4 +59,5 @@ __all__ = [
     "deserialize_encoded",
     "Encoder",
     "Decoder",
+    "warmup",
 ]

@@ -7,188 +7,35 @@
 // order: (acc * norm) * window, never acc * (norm * window).
 //
 // Shapes: coeffs [B, n] f32, the table split into table_hi / table_lo, each
-// [2n, n] f32 (the transposed cos table, see below), window [2n] f32, out
-// [B, 2n] f32.  Any 0 <= B < 65536 * 128 (the ragged edge is masked); n must
-// be a multiple of 64 (2n a multiple of the 128-column tile); the codec uses
-// n = 1024.  Pointers 16-byte aligned.
+// [2n, n] f32 (the transposed cos table: tf32 wgmma takes its shared-memory
+// operand K-major only), window [2n] f32, out [B, 2n] f32.  Any
+// 0 <= B < 65536 * 128 (the ragged edge is masked); n must be a multiple
+// of 64 (2n a multiple of the 128-column tile); the codec uses n = 1024.
+// Pointers 16-byte aligned.
 //
 // What bounds it on this card: 2*B*n*2n flops (11.8 GFLOP at B = 2816,
 // n = 1024) against ~35 MB of activations, with the table read from L2: far
-// above the ridge, so it is bound by arithmetic.  The fp32 CUDA cores peak at
-// 67 TFLOP/s; only the tensor cores go beyond, and they take TF32 (10-bit
-// mantissa), which alone misses the 2e-5 bar of the TPU kernel's
-// Precision.HIGHEST (a CPU emulation: 1.4e-4 against float64).  The 3xTF32
-// below does 35.4 GFLOP of TF32 at B = 2816 in ~0.135 ms on an H100 SXM at
-// 700 W, ~53% of the 495 TFLOP/s peak.  What holds it there: each
-// consumer's split and sum work runs between its wgmma batches, and 352
-// tiles make 2.67 waves, paid as 3.  Below ~130 rows only 16-32 blocks run,
-// each its whole k-loop, and cuBLAS's GEMV path is faster.
+// above the ridge, so it is bound by arithmetic.  The 3xTF32 tile product
+// of tf32x3.cuh (wgmma fed by TMA, a Fast2Sum carry across k-tiles) does
+// 35.4 GFLOP of TF32 at B = 2816 in ~0.135 ms on an H100 SXM at 700 W, ~53%
+// of the 495 TFLOP/s peak.  What holds it there: each consumer's split and
+// sum work runs between its wgmma batches, and 352 tiles make 2.67 waves,
+// paid as 3.  Below ~130 rows only 16-32 blocks run, each its whole
+// k-loop, and cuBLAS's GEMV path is faster.
 //
-// Design: 3xTF32 on the tensor cores.  Each operand x is split into
-// hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest, ties away;
-// the product is a_hi*b_lo + a_lo*b_hi + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the
-// product, is dropped), three wgmma per k-step of 8.
-//   * The table is split once per table by the wrapper (ops/kernels.py),
-//     transposed to [2n, n]: tf32 wgmma takes its shared-memory operand
-//     K-major only.
-//   * The coeffs change every launch, so the consumers split them in
-//     registers with cvt.rna.tf32.f32 (a raw f32 fed to a tf32 wgmma would
-//     be truncated, not rounded) and feed A from registers.  Each consumer
-//     reads the next k-tile's A fragment while the current wgmma run.
-//   * One producer thread streams [128, 32] tiles of coeffs, table_hi and
-//     table_lo (48 KB a stage) with TMA, 128-byte swizzle, into a 4-stage
-//     mbarrier ring (full/empty barriers); two consumer warpgroups each own
-//     64 rows of the 128x128 output tile and run m64n128k8 wgmma on it.
-//     The producer's warpgroup gives its registers to the consumers
-//     (setmaxnreg 40 / 232).
-//   * Accuracy.  The tensor cores' fp32 accumulation behaves as if it
-//     truncated: a CPU model that truncates after each wgmma predicted the
-//     card's error at ~128 rows (1.72e-7 against 1.74e-7), and in that
-//     model one accumulator over n = 1024 is 24x less accurate than plain
-//     fp32.  The bar is the plain
-//     version's own error against float64 (at most twice it), and cuBLAS
-//     at B = 1 is nearly exact.  Three measures keep the kernel within it:
-//     - the wgmma accumulator holds one 32-deep k-tile, then is added to a
-//       register sum with __fadd_rn;
-//     - within a k-tile the 8 small-term wgmma run first and the 4 large
-//       ones last, so that fewer truncations happen at the large magnitude;
-//     - the rounding error of each add to the sum, (sum - t) + part
-//       (Fast2Sum), is left in the accumulator as the start of the next
-//       k-tile, so it is not lost: compensated summation at no register cost.
-//   * The epilogue runs on the accumulator fragment in registers:
-//     __fmul_rn(__fmul_rn(acc, norm), window[col]); lane pairs swap halves
-//     with a shuffle so that each thread stores 16 bytes of one row.
-//   * Plain grid of 128x128 tiles, one block per SM (192 KB of shared
-//     memory): 352 tiles, 2.67 waves on 132 SMs at B = 2816.  BN = 256 would
-//     need 128 accumulator plus 128 sum registers a thread.
+// The epilogue runs on the accumulator fragment in registers:
+// __fmul_rn(__fmul_rn(acc, norm), window[col]).  Plain grid of 128x128
+// tiles, one block per SM (192 KB of shared memory): 352 tiles, 2.67 waves
+// on 132 SMs at B = 2816.  BN = 256 would need 128 accumulator plus 128 sum
+// registers a thread.
 //
-// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC  (no --use_fast_math, no -lcuda:
-//             the TMA map encoder is reached through the runtime)
-// and called through the plain C entry glc_imdct_window below.
+// Called through the plain C entry glc_imdct_window below.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32x3.cuh"
+
+using namespace tf32x3;
 
 namespace {
-
-constexpr int BM = 128;  // output rows per block: two warpgroups of 64
-constexpr int BN = 128;  // output columns per block
-constexpr int BK = 32;   // k-tile: 32 f32 make one 128-byte swizzle row
-constexpr int STAGES = 4;
-constexpr int CONSUMER_WARPS = 8;                   // warpgroups 0 and 1
-constexpr int THREADS = CONSUMER_WARPS * 32 + 128;  // + the producer's
-constexpr uint32_t TILE_BYTES = BM * BK * 4;        // 16 KB
-constexpr uint32_t STAGE_BYTES = 3 * TILE_BYTES;    // coeffs, table_hi, table_lo
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
-static_assert(BN == BM, "the table tiles have the coeffs tile's size");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A phase that never
-// completes traps after ~10 s (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-// One [box_rows, 32] f32 box at (column c0, row c1) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle, whose
-// 1024-byte swizzle atom starts on a 1024-byte boundary; `addr` may step
-// 32 bytes (one k-step of 8 tf32) into the row.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |           // leading offset (unused)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |  // stride: 8 rows of 128 B
-         (static_cast<uint64_t>(1) << 62);           // 128-byte swizzle
-}
-
-// Keeps the compiler from moving register reads of `d` across the
-// asynchronous wgmma that writes it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d += a * b over one k-step of 8: a [64, 8] tf32 from registers, b [8, 128]
-// tf32 from shared memory.  scale-d is always on: d never starts from zero
-// (it carries the last k-tile's rounding error).
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// x ~= hi + lo, each a tf32 value (low 13 bits zero) rounded to nearest with
-// ties away; the mask clears whatever cvt leaves in the low bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
-  h &= 0xFFFFE000u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(x - __uint_as_float(h)));
-  hi = h;
-  lo = l & 0xFFFFE000u;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 imdct_window_kernel(const __grid_constant__ CUtensorMap coeffs_map,  // [B, n]
@@ -197,181 +44,27 @@ imdct_window_kernel(const __grid_constant__ CUtensorMap coeffs_map,  // [B, n]
                     const float* __restrict__ window,                // [2n]
                     float* __restrict__ out,                         // [B, 2n]
                     int B, int n, float norm) {
-  extern __shared__ unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[STAGES];
-  __shared__ __align__(8) uint64_t empty[STAGES];
-
-  // The 128-byte swizzle repeats every 1024 bytes: tiles start on one.
-  const uint32_t pad = (1024 - (smem_addr(smem) & 1023)) & 1023;
-  const uint32_t tiles = smem_addr(smem) + pad;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  const int ktiles = n / BK;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(smem_addr(&full[s]), 1);
-      mbar_init(smem_addr(&empty[s]), CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp >= CONSUMER_WARPS) {  // the producer: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
-    if (warp == CONSUMER_WARPS && lane == 0) {
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % STAGES;
-        mbar_wait(smem_addr(&empty[s]), ((kt / STAGES) & 1) ^ 1);
-        const uint32_t bar = smem_addr(&full[s]);
-        const uint32_t dst = tiles + s * STAGE_BYTES;
-        mbar_expect_tx(bar, STAGE_BYTES);  // rows past B arrive as zeros
-        tma_load(dst, &coeffs_map, bar, kt * BK, row0);
-        tma_load(dst + TILE_BYTES, &hi_map, bar, kt * BK, col0);
-        tma_load(dst + 2 * TILE_BYTES, &lo_map, bar, kt * BK, col0);
-      }
-    }
+  float total[64];
+  if (!tile_product(&coeffs_map, &hi_map, &lo_map, n / BK, row0, col0, total)) {
     return;
   }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-  // Consumers.  Fragment coordinates of m64nNk8 (PTX ISA, wgmma register
-  // fragments): warp w of a warpgroup holds rows 16w + g and 16w + g + 8;
-  // A element i of a k-step is at column q + 4 * (i / 2), row + 8 * (i % 2);
-  // accumulator 4j + i is at column 8j + 2q + i % 2, row + 8 * (i / 2).
-  const int g = lane / 4;
-  const int q = lane % 4;
-  const int r = (warp / 4) * 64 + (warp % 4) * 16 + g;  // tile rows r, r + 8
-  float total[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) total[i] = part[i] = 0.f;
-
-  // The A fragment of k-tile kt, read from shared memory while the wgmma of
-  // k-tile kt - 1 run.  16-byte chunk c of tile row x lies at chunk
-  // c ^ (x % 8), and r % 8 == g.
-  float a_raw[BK / 8][4];
-  auto load_a = [&](int kt) {
-    const int s = kt % STAGES;
-    mbar_wait(smem_addr(&full[s]), (kt / STAGES) & 1);
-    const float* a_tile =
-        reinterpret_cast<const float*>(smem + pad + s * STAGE_BYTES);
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
-      const int c0 = ((2 * ks) ^ g) * 4 + q;
-      const int c1 = ((2 * ks + 1) ^ g) * 4 + q;
-      a_raw[ks][0] = a_tile[r * BK + c0];
-      a_raw[ks][1] = a_tile[(r + 8) * BK + c0];
-      a_raw[ks][2] = a_tile[r * BK + c1];
-      a_raw[ks][3] = a_tile[(r + 8) * BK + c1];
-    }
-  };
-
-  load_a(0);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % STAGES;
-    const uint32_t stage = tiles + s * STAGE_BYTES;
-    uint32_t a_hi[BK / 8][4], a_lo[BK / 8][4];
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(a_raw[ks][i], a_hi[ks][i], a_lo[ks][i]);
-    }
-
-    // part starts as the rounding error carried from the last k-tile.
-    fence_regs(part);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {  // the small terms first,
-      wgmma_tf32(part, a_hi[ks], smem_desc(stage + 2 * TILE_BYTES + ks * 32));
-      wgmma_tf32(part, a_lo[ks], smem_desc(stage + TILE_BYTES + ks * 32));
-    }
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {  // the large ones last
-      wgmma_tf32(part, a_hi[ks], smem_desc(stage + TILE_BYTES + ks * 32));
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    if (kt + 1 < ktiles) load_a(kt + 1);
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_regs(part);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(smem_addr(&empty[s]));  // the stage is free
-
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {  // Fast2Sum: total + part = t + error
-      const float t = __fadd_rn(total[i], part[i]);
-      part[i] = __fadd_rn(__fsub_rn(total[i], t), part[i]);
-      total[i] = t;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) total[i] = __fadd_rn(total[i], part[i]);
-
   // Epilogue: (acc * norm) * window, two roundings, no FMA contraction.
-  // Lanes q and q ^ 1 swap halves: the even lane stores four adjacent
-  // columns of row r, the odd lane the same columns of row r + 8.
-  const bool odd = q & 1;
-  const int row = row0 + r + (odd ? 8 : 0);
-  float* dst = out + static_cast<size_t>(row) * (2 * n) + col0 + 4 * (q / 2);
+  const int q = threadIdx.x % 4;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const float2 w =
         *reinterpret_cast<const float2*>(window + col0 + 8 * j + 2 * q);
-    const float v0 = __fmul_rn(__fmul_rn(total[4 * j + 0], norm), w.x);
-    const float v1 = __fmul_rn(__fmul_rn(total[4 * j + 1], norm), w.y);
-    const float v2 = __fmul_rn(__fmul_rn(total[4 * j + 2], norm), w.x);
-    const float v3 = __fmul_rn(__fmul_rn(total[4 * j + 3], norm), w.y);
-    const float t0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
-    const float t1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
-    if (row < B) {
-      *reinterpret_cast<float4*>(dst + 8 * j) =
-          odd ? make_float4(t0, t1, v2, v3) : make_float4(v0, v1, t0, t1);
-    }
+    total[4 * j + 0] = __fmul_rn(__fmul_rn(total[4 * j + 0], norm), w.x);
+    total[4 * j + 1] = __fmul_rn(__fmul_rn(total[4 * j + 1], norm), w.y);
+    total[4 * j + 2] = __fmul_rn(__fmul_rn(total[4 * j + 2], norm), w.x);
+    total[4 * j + 3] = __fmul_rn(__fmul_rn(total[4 * j + 3], norm), w.y);
   }
+  store_tile(total, out, B, 2 * n, row0, col0);
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A map of a row-major [rows, n] f32 array in boxes of [box_rows, 32], with
-// the 128-byte swizzle; boxes past the last row read zeros.
-bool make_map(CUtensorMap* map, const float* base, int rows, int n, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * sizeof(float)};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
-                dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+bool raised[64] = {};  // the shared-memory limit, raised once per device
 
 }  // namespace
 
@@ -393,18 +86,8 @@ extern "C" int glc_imdct_window(const float* coeffs, const float* table_hi,
       !make_map(&lo_map, table_lo, 2 * n, n, BN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // The shared-memory limit is raised once per device.
-  static bool raised[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = raise_smem_once(imdct_window_kernel, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!raised[device]) {
-    err = cudaFuncSetAttribute(imdct_window_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised[device] = true;
-  }
   const dim3 grid((2 * n) / BN, (B + BM - 1) / BM);
   imdct_window_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       coeffs_map, hi_map, lo_map, window, out, B, n, norm);
@@ -415,13 +98,5 @@ extern "C" int glc_imdct_window(const float* coeffs, const float* table_hi,
 // (spill) bytes a thread, static and dynamic shared memory bytes a block,
 // pipeline stages.  Returns a cudaError_t as an int.
 extern "C" int glc_imdct_window_info(int* info) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, imdct_window_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(attr.sharedSizeBytes);
-  info[3] = SMEM_BYTES;
-  info[4] = STAGES;
-  return 0;
+  return kernel_info(imdct_window_kernel, SMEM_BYTES, STAGES, info);
 }

@@ -1,22 +1,35 @@
-"""The hand-written CUDA kernel of the decode path, its plain version and
-its build.
+"""The hand-written CUDA kernels of the port, their plain versions and their
+build.
 
-`imdct_window` replaces the TPU kernel
-``glc_tpu/ops/pallas_kernels.py::imdct_fused``: the IMDCT product fused with
-the synthesis window, ``((coeffs @ cos_table) * norm) * window``.  The
-source is ``csrc/imdct_window.cu`` (CUDA C++ for sm_90a: 3xTF32 `wgmma`
-fed by TMA); it is compiled with nvcc on first use into
-``build/glc_tpu_torch/`` under the repository root, as a shared library with
-a plain C entry loaded through ctypes.  The library's file name carries a
-hash of every file under ``csrc/`` and of the nvcc flags, so an edit of
-either rebuilds it.
+* `imdct_window` replaces the TPU kernel
+  ``glc_tpu/ops/pallas_kernels.py::imdct_fused``: the decode's IMDCT product
+  fused with the synthesis window, ``((coeffs @ cos_table) * norm) *
+  window`` (``csrc/imdct_window.cu``).
+* `mdct_rows` is the encode's MDCT product, ``(win @ cos_table.T) * norm``
+  (``csrc/mdct_rows.cu``), and `band_energy` the masking model's band sums
+  of squares, ``(coeffs * coeffs) @ band_mask.T`` (``csrc/band_energy.cu``).
+  They replace no Pallas kernel but two XLA einsums
+  (``glc_tpu/ops/mdct.py:67``, ``glc_tpu/ops/psycho.py:155``): cuBLAS picks
+  its kernel by the product's shape, so a frame's bits moved with the row
+  count of its segment or shard; these kernels compute each row alike at
+  any row count, so the encode's bytes do not depend on how the frames are
+  cut, as the JAX package's do not.
 
-The kernel reads the cos table as its TF32 split (`split_tf32`), transposed
-to [2n, n]; `table_split` makes it once per table tensor and caches it.
+The two products are 3xTF32 `wgmma` fed by TMA (``csrc/tf32x3.cuh``); they
+read their table as its TF32 split (`split_tf32`), made once per table
+tensor and cached: `table_split` the transposed table's for `imdct_window`,
+`cos_split` the table's own for `mdct_rows`.  `band_energy` reads each
+band's bin range, `band_ranges`, made once per band-mask tensor.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-always launches the kernel or raises.  `imdct_window.launches` counts the
-kernel launches, `table_split.splits` the table splits.
+Every ``.cu`` file under ``csrc/`` is compiled with nvcc on first use, one
+nvcc a source, all at once, and linked into one shared library with plain C
+entries, loaded through ctypes, under ``build/glc_tpu_torch/`` at the
+repository root.  The library's file name carries a hash of every file
+under ``csrc/`` and of the nvcc flags, so an edit of either rebuilds it.
+
+On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
+it always launches its kernel or raises.  ``<wrapper>.launches`` counts
+each kernel's launches, ``<split>.splits`` the table splits.
 """
 
 from __future__ import annotations
@@ -29,24 +42,29 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
-from .mdct import imdct
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
-SOURCE = CSRC_DIR / "imdct_window.cu"
 BUILD_DIR = _PKG_DIR.parent / "build" / "glc_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+KERNELS = ("imdct_window", "mdct_rows", "band_energy")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    """The kernel sources: every ``.cu`` file under ``csrc/``."""
+    return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def library_path() -> Path:
@@ -56,7 +74,7 @@ def library_path() -> Path:
     for f in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
         h.update(b"\0" + f.relative_to(CSRC_DIR).as_posix().encode() + b"\0")
         h.update(f.read_bytes())
-    return BUILD_DIR / f"libimdct_window-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libglc_kernels-{h.hexdigest()[:16]}.so"
 
 
 def find_nvcc() -> str:
@@ -71,68 +89,112 @@ def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the imdct_window kernel")
+                           "build the port's kernels")
     return nvcc
 
 
-def build_command(out: Path, nvcc: str = "nvcc") -> List[str]:
-    """The nvcc command that builds the kernel library at `out`."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
+def compile_command(src: Path, obj: Path, nvcc: str = "nvcc") -> List[str]:
+    """The nvcc command that compiles one kernel source to an object."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs: Sequence[Path], out: Path,
+                 nvcc: str = "nvcc") -> List[str]:
+    """The nvcc command that links the objects into the library at `out`."""
+    return [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+
+
+def _build(path: Path) -> None:
+    """Compile every source (one nvcc each, all at once) and link them into
+    the library at `path`, atomically."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sources()
+        objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen(compile_command(s, o, nvcc),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        stderr = [p.communicate()[1] for p in procs]  # waits for each
+        errors = [(s.name, p.returncode, err)
+                  for s, p, err in zip(srcs, procs, stderr) if p.returncode]
+        if not errors:
+            lib = Path(tmp) / "lib.so"
+            proc = subprocess.run(link_command(objs, lib, nvcc),
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                errors.append(("the library", proc.returncode, proc.stderr))
+        if errors:
+            name, rc, err = errors[0]
+            raise RuntimeError(f"nvcc failed to build {name} (rc={rc}):\n{err}")
+        os.replace(lib, path)  # atomic: concurrent builds agree
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built from the source on first use."""
+    """The kernel library, built from the sources on first use."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         path = library_path()
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    build_command(Path(tmp), find_nvcc()),
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {SOURCE.name} "
-                        f"(rc={proc.returncode}):\n{proc.stderr}"
-                    )
-                os.replace(tmp, path)  # atomic: concurrent builds agree
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            _build(path)
         lib = ctypes.CDLL(str(path))
         c = ctypes
-        lib.glc_imdct_window.restype = c.c_int
+        ptr, i32 = c.c_void_p, c.c_int
         lib.glc_imdct_window.argtypes = [
-            c.c_void_p, c.c_void_p, c.c_void_p,  # coeffs, table_hi, table_lo
-            c.c_void_p, c.c_void_p,              # window, out
-            c.c_int, c.c_int, c.c_float,         # B, n, norm
-            c.c_void_p,                          # stream
+            ptr, ptr, ptr,          # coeffs, table_hi, table_lo
+            ptr, ptr,               # window, out
+            i32, i32, c.c_float,    # B, n, norm
+            ptr,                    # stream
         ]
-        lib.glc_imdct_window_info.restype = c.c_int
-        lib.glc_imdct_window_info.argtypes = [c.POINTER(c.c_int)]
+        lib.glc_mdct_rows.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,  # win, table_hi, table_lo, norm, out
+            i32, i32, ptr,            # M, n, stream
+        ]
+        lib.glc_band_energy.argtypes = [
+            ptr, ptr, ptr,          # coeffs, ranges, out
+            i32, i32, i32, ptr,     # M, n, bands, stream
+        ]
+        for name in KERNELS:
+            getattr(lib, f"glc_{name}").restype = i32
+            info = getattr(lib, f"glc_{name}_info")
+            info.restype = i32
+            info.argtypes = [c.POINTER(i32)]
         _lib = lib
         return lib
 
 
-def kernel_info() -> Dict[str, int]:
-    """What the build made of the kernel (needs a CUDA device): registers
+def kernel_info() -> Dict[str, Dict[str, int]]:
+    """What the build made of each kernel (needs a CUDA device): registers
     and local (spill) bytes a thread, static and dynamic shared memory a
     block, pipeline stages."""
     lib = load_library()
-    info = (ctypes.c_int * 5)()
-    rc = lib.glc_imdct_window_info(info)
-    if rc != 0:
-        raise RuntimeError(f"imdct_window info failed: CUDA error {rc}")
-    return {
-        "registers": info[0], "local_bytes": info[1],
-        "static_smem": info[2], "dynamic_smem": info[3], "stages": info[4],
-    }
+    out = {}
+    for name in KERNELS:
+        info = (ctypes.c_int * 5)()
+        rc = getattr(lib, f"glc_{name}_info")(info)
+        if rc != 0:
+            raise RuntimeError(f"{name} info failed: CUDA error {rc}")
+        out[name] = {
+            "registers": info[0], "local_bytes": info[1],
+            "static_smem": info[2], "dynamic_smem": info[3],
+            "stages": info[4],
+        }
+    return out
+
+
+def _rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x [..., k] @ table [k, m] as ONE 2-D product over all leading rows:
+    the plain versions' product (and the CPU decode's IMDCT).
+
+    ``torch.matmul`` does not fold a non-contiguous [F, C, k] operand into
+    rows; it runs a batched product of F tiny [C, k] matrices instead,
+    which on an H100 took 29 ms for the 180 s stereo encode's MDCT where
+    the 2-D product takes about a millisecond (PERF.md)."""
+    out = torch.matmul(x.reshape(-1, x.shape[-1]), table)
+    return out.view(*x.shape[:-1], table.shape[-1])
 
 
 def _round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -152,40 +214,111 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, _round_tf32(x - hi)
 
 
+def _cached(cache: WeakTensorKeyDictionary, key: torch.Tensor, make):
+    """(make(key), True), kept in `cache` as long as `key` lives, or the
+    kept value and False; made again if `key` was changed in place."""
+    hit = cache.get(key)
+    if hit is not None and hit[0] == key._version:
+        return hit[1], False
+    value = make(key)
+    cache[key] = (key._version, value)
+    return value, True
+
+
 _SPLITS = WeakTensorKeyDictionary()
+_COS_SPLITS = WeakTensorKeyDictionary()
+_RANGES = WeakTensorKeyDictionary()
 
 
 def table_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``split_tf32(cos_table.T)``, each half [2n, n] contiguous, made once
-    per table tensor (and again only if it is changed in place) and held as
-    long as the table lives."""
-    hit = _SPLITS.get(cos_table)
-    if hit is not None and hit[0] == cos_table._version:
-        return hit[1], hit[2]
-    hi, lo = split_tf32(cos_table.t().contiguous())
-    _SPLITS[cos_table] = (cos_table._version, hi, lo)
-    table_split.splits += 1
-    return hi, lo
+    """``split_tf32(cos_table.T)``, each half [2n, n] contiguous: the B
+    operand of `imdct_window`, made once per table tensor (and again only
+    if it is changed in place) and held as long as the table lives."""
+    split, made = _cached(_SPLITS, cos_table,
+                          lambda t: split_tf32(t.t().contiguous()))
+    table_split.splits += made
+    return split
 
 
 table_split.splits = 0
 
 
+def cos_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``split_tf32(cos_table)``, each half [n, 2n] contiguous: the B
+    operand of `mdct_rows` (the table is K-major as it is), cached like
+    `table_split` but apart from it."""
+    split, made = _cached(_COS_SPLITS, cos_table,
+                          lambda t: split_tf32(t.contiguous()))
+    cos_split.splits += made
+    return split
+
+
+cos_split.splits = 0
+
+
+def _ranges_of(band_mask: torch.Tensor) -> torch.Tensor:
+    m = band_mask.detach().cpu().numpy()
+    ranges = np.zeros((m.shape[0], 2), np.int32)
+    for b, row in enumerate(m):
+        nz = np.flatnonzero(row)
+        if len(nz) == 0:
+            continue
+        lo, hi = nz[0], nz[-1] + 1
+        if not (row[lo:hi] == 1.0).all():
+            raise ValueError(f"band_mask row {b} is not one run of ones")
+        ranges[b] = lo, hi
+    return torch.from_numpy(ranges).to(band_mask.device)
+
+
+def band_ranges(band_mask: torch.Tensor) -> torch.Tensor:
+    """Each band's bins [lo, hi) as int32 [bands, 2] on the mask's device
+    (0, 0 for an empty band), for a band mask [bands, n] whose rows are
+    runs of ones; made once per mask tensor (one host copy of the mask)."""
+    return _cached(_RANGES, band_mask, _ranges_of)[0]
+
+
 def imdct_window_reference(coeffs: torch.Tensor, cos_table: torch.Tensor,
                            window: torch.Tensor, norm) -> torch.Tensor:
-    """Plain version: ((coeffs @ cos_table) * norm) * window, f32."""
-    return imdct(coeffs, cos_table, norm) * window
+    """Plain version: ((coeffs @ cos_table) * norm) * window, f32 (the
+    IMDCT of ops/mdct.py, then the window)."""
+    return (_rows_matmul(coeffs, cos_table) * norm) * window
+
+
+def mdct_rows_reference(win: torch.Tensor, cos_table: torch.Tensor,
+                        norm) -> torch.Tensor:
+    """Plain version: (win @ cos_table.T) * norm, f32."""
+    return _rows_matmul(win, cos_table.T) * norm
+
+
+def band_energy_reference(coeffs: torch.Tensor,
+                          band_mask: torch.Tensor) -> torch.Tensor:
+    """Plain version: (coeffs * coeffs) @ band_mask.T, f32."""
+    return _rows_matmul(coeffs * coeffs, band_mask.T)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, coeffs on {device}")
+        raise ValueError(f"{name} is on {t.device}, the input on {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _rows_of(name: str, x: torch.Tensor) -> Tuple[int, int]:
+    """The [M, width] of a wrapper's row input, which must be on the CPU
+    or a CUDA device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"{name} takes rows [M, width], got {tuple(x.shape)}")
+    return x.shape[0], x.shape[1]
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
@@ -214,10 +347,9 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
         return out
     lib = load_library()
     table_hi, table_lo = table_split(cos_table)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.glc_imdct_window(
         coeffs.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
-        window.data_ptr(), out.data_ptr(), B, n, float(norm), stream,
+        window.data_ptr(), out.data_ptr(), B, n, float(norm), _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"imdct_window launch failed: CUDA error {rc}")
@@ -226,3 +358,84 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
 
 
 imdct_window.launches = 0
+
+
+def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor,
+              norm) -> torch.Tensor:
+    """MDCT coefficients [M, n] f32 of windowed blocks win [M, 2n] f32 (rows
+    contiguous) against cos_table [n, 2n] f32.
+
+    `norm` is the f32 MDCT scale: a float, or a one-element f32 tensor on
+    win's device (read by the kernel, with no host copy).  The inputs are
+    checked on either device; then a CPU `win` takes
+    `mdct_rows_reference`, and a CUDA one launches the kernel on the
+    current stream or raises.  Each row's result is the same bits at any M.
+    """
+    M, width = _rows_of("mdct_rows", win)
+    n = width // 2
+    dev = win.device
+    _check("win", win, (M, 2 * n), dev)
+    _check("cos_table", cos_table, (n, 2 * n), dev)
+    if torch.is_tensor(norm) and (norm.device != dev or norm.numel() != 1
+                                  or norm.dtype != torch.float32):
+        raise ValueError(f"norm must be one float32 on {dev}, got "
+                         f"{norm.dtype}{tuple(norm.shape)} on {norm.device}")
+    if dev.type == "cpu":
+        return mdct_rows_reference(win, cos_table, norm)
+    if n % 128:
+        raise ValueError(f"n={n} must be a multiple of 128")
+    out = torch.empty((M, n), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    if not torch.is_tensor(norm):
+        norm = torch.full((1,), norm, dtype=torch.float32, device=dev)
+    lib = load_library()
+    table_hi, table_lo = cos_split(cos_table)
+    rc = lib.glc_mdct_rows(
+        win.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
+        norm.data_ptr(), out.data_ptr(), M, n, _stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"mdct_rows launch failed: CUDA error {rc}")
+    mdct_rows.launches += 1
+    return out
+
+
+mdct_rows.launches = 0
+
+
+def band_energy(coeffs: torch.Tensor, band_mask: torch.Tensor) -> torch.Tensor:
+    """Band sums of squares [M, bands] f32 of coeffs [M, n] f32 (rows
+    contiguous) over band_mask [bands, n] f32, a 0/1 matrix whose rows are
+    runs of ones.
+
+    The inputs are checked on either device; then a CPU `coeffs` takes
+    `band_energy_reference`, and a CUDA one launches the kernel on the
+    current stream or raises.  Each row's sums are the same bits at any M.
+    """
+    M, n = _rows_of("band_energy", coeffs)
+    dev = coeffs.device
+    _check("coeffs", coeffs, (M, n), dev)
+    if band_mask.dim() != 2:
+        raise ValueError(f"band_mask must be [bands, n], got "
+                         f"{tuple(band_mask.shape)}")
+    bands = band_mask.shape[0]
+    _check("band_mask", band_mask, (bands, n), dev)
+    if dev.type == "cpu":
+        return band_energy_reference(coeffs, band_mask)
+    if n % 4:
+        raise ValueError(f"n={n} must be a multiple of 4")
+    out = torch.empty((M, bands), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    lib = load_library()
+    ranges = band_ranges(band_mask)
+    rc = lib.glc_band_energy(coeffs.data_ptr(), ranges.data_ptr(),
+                             out.data_ptr(), M, n, bands, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"band_energy launch failed: CUDA error {rc}")
+    band_energy.launches += 1
+    return out
+
+
+band_energy.launches = 0

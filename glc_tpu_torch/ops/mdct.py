@@ -9,10 +9,12 @@ Table math matches the reference's f32 evaluation order bit-for-bit:
   window = sin(PI * (i + 0.5) / 2N)                  (codec.rs:342-344)
   norm   = sqrt(2/n)                                 (codec.rs:347)
 
-`mdct` / `imdct` are plain f32 ``torch.matmul`` products, the counterpart of
-the JAX package's ``Precision.HIGHEST`` einsums: the package turns TF32 off
-at import, so the product runs in full f32.  `imdct` is the plain version
-of the decode path's fused kernel (``ops/kernels.py``), which runs on CUDA.
+On the CPU, `mdct` / `imdct` are plain f32 ``torch.matmul`` products, the
+counterpart of the JAX package's ``Precision.HIGHEST`` einsums: the package
+turns TF32 off at import, so the product runs in full f32.  On CUDA the
+encode's `mdct` is the hand kernel `mdct_rows` (``ops/kernels.py``), and
+`imdct` is the plain version of the decode path's fused kernel
+`imdct_window`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from .kernels import _rows_matmul, mdct_rows
 
 
 @dataclass(frozen=True)
@@ -57,17 +61,6 @@ def get_mdct_tables(n: int = 1024, frame_size: int = 2048) -> MdctTables:
     return MdctTables(cos_table=cos_table, window=window, n=n, norm=norm)
 
 
-def _rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """x [..., k] @ table [k, m] as ONE 2-D product over all leading rows.
-
-    ``torch.matmul`` does not fold a non-contiguous [F, C, k] operand into
-    rows; it runs a batched product of F tiny [C, k] matrices instead,
-    which on an H100 took 29 ms for the 180 s stereo encode's MDCT where
-    the 2-D product takes about a millisecond (PERF.md)."""
-    out = torch.matmul(x.reshape(-1, x.shape[-1]), table)
-    return out.view(*x.shape[:-1], table.shape[-1])
-
-
 # The CPU's BLAS picks its kernel, and how it splits the work among its
 # threads, by the row count of a product, so the same row can round
 # differently in products of different sizes.  The encode's products run
@@ -76,15 +69,16 @@ CPU_ROW_BLOCK = 64
 
 
 def fixed_rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """`_rows_matmul`, but on the CPU as products of exactly
-    `CPU_ROW_BLOCK` rows (the last block zero-padded), so that a row's
-    result does not depend on how many rows share the call, at a given
-    thread count.  A frame's encode then does not depend on the segment or
-    the shard it rides in: the sharded album encode writes the serial
-    encode's bytes, as the JAX package's does on XLA:CPU.  On CUDA it is
-    `_rows_matmul`."""
+    """`_rows_matmul` on the CPU as products of exactly `CPU_ROW_BLOCK` rows
+    (the last block zero-padded), so that a row's result does not depend on
+    how many rows share the call, at a given thread count.  A frame's
+    encode then does not depend on the segment or the shard it rides in:
+    the sharded album encode writes the serial encode's bytes, as the JAX
+    package's does on XLA:CPU.  The CPU's encode products only: on CUDA
+    the encode runs them as the row-invariant kernels `mdct_rows` and
+    `band_energy` (``ops/kernels.py``)."""
     if x.device.type != "cpu":
-        return _rows_matmul(x, table)
+        raise ValueError(f"fixed_rows_matmul runs on the CPU, not {x.device}")
     rows = x.reshape(-1, x.shape[-1])
     M, R = rows.shape[0], CPU_ROW_BLOCK
     full = M - M % R
@@ -100,8 +94,14 @@ def fixed_rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def mdct(blocks: torch.Tensor, cos_table: torch.Tensor, norm) -> torch.Tensor:
     """Batched MDCT: [..., frame_size] -> [..., n] (codec.rs:358-374);
     `norm` applied to the product exactly as the reference applies it to
-    each dot product.  Row-invariant on the CPU (`fixed_rows_matmul`)."""
-    return fixed_rows_matmul(blocks, cos_table.T) * norm
+    each dot product.  Row-invariant on both devices: `fixed_rows_matmul`
+    on the CPU, the kernel `mdct_rows` on CUDA (any other device raises
+    there)."""
+    if blocks.device.type == "cpu":
+        return fixed_rows_matmul(blocks, cos_table.T) * norm
+    rows = blocks.reshape(-1, blocks.shape[-1]).contiguous()
+    out = mdct_rows(rows, cos_table, norm)
+    return out.view(*blocks.shape[:-1], cos_table.shape[0])
 
 
 def imdct(coeffs: torch.Tensor, cos_table: torch.Tensor, norm) -> torch.Tensor:

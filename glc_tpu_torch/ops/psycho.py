@@ -8,7 +8,8 @@ Mirrors the reference's simplified model (reference src/codec.rs:91-240):
 piecewise-linear frequency weighting, simplified-Bark critical band edges, and
 per-band RMS-energy masking thresholds.  The per-band reductions are one
 small matmul against a dense 0/1 band-membership matrix padded to
-MAX_BANDS, and the per-coefficient broadcast is a gather.
+MAX_BANDS on the CPU, and the hand kernel `band_energy`
+(``ops/kernels.py``) on CUDA; the per-coefficient broadcast is a gather.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .kernels import band_energy
 from .mdct import fixed_rows_matmul
 
 # The reference caps the band list at 50 edges (codec.rs:154) and then appends
@@ -147,8 +149,10 @@ def masking_thresholds(
 ) -> torch.Tensor:
     """Per-coefficient masking thresholds (reference src/codec.rs:186-240).
 
-    Band RMS energies via one matmul (row-invariant on the CPU,
-    `fixed_rows_matmul`); thresholds broadcast back per bin;
+    Band RMS energies from the band sums of squares, row-invariant on both
+    devices: one matmul in fixed row blocks on the CPU
+    (`fixed_rows_matmul`), the kernel `band_energy` on CUDA (any other
+    device raises there); thresholds broadcast back per bin;
     largest peaks (>30% of global max) get the threshold capped at 5% of the
     global max.  Matches the reference's f32 multiply association:
     ((energy * 0.01) * compression_factor) * perceptual_factor * individual.
@@ -158,8 +162,12 @@ def masking_thresholds(
     compression_factor = float(
         np.float32(max(1.0 - np.float32(quality), np.float32(0.01)))
     )
-    sq = coeffs * coeffs
-    band_sq = fixed_rows_matmul(sq, band_mask.T)
+    if coeffs.device.type == "cpu":
+        band_sq = fixed_rows_matmul(coeffs * coeffs, band_mask.T)
+    else:
+        rows = coeffs.reshape(-1, coeffs.shape[-1]).contiguous()
+        band_sq = band_energy(rows, band_mask).view(
+            *coeffs.shape[:-1], band_mask.shape[0])
     energy = torch.sqrt(band_sq * band_inv_count)
     base = ((energy * 0.01) * compression_factor) * band_pf
     thr = base[..., band_of] * inv_w

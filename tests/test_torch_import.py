@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package, no source file of it imports them, and its CUDA kernel is built
-for Hopper (sm_90a) from the source under glc_tpu_torch/csrc/."""
+package, no source file of it imports them, and its CUDA kernels are built
+for Hopper (sm_90a) from the sources under glc_tpu_torch/csrc/."""
 
 import re
 import subprocess
@@ -56,33 +56,52 @@ def test_no_source_imports_jax():
 
 
 def test_kernel_build_command_targets_sm90a():
-    """The loader builds csrc/imdct_window.cu with nvcc for sm_90a as a
-    plain shared library, without fast math (the command is checked, not
-    run: there is no nvcc here)."""
-    assert kernels.SOURCE == PKG / "csrc" / "imdct_window.cu"
-    assert kernels.SOURCE.is_file()
+    """The loader compiles every source under csrc/ with nvcc for sm_90a,
+    one command a source, and links the objects into one plain shared
+    library, without fast math (the commands are checked, not run: there
+    is no nvcc here)."""
+    srcs = kernels.sources()
+    assert [s.name for s in srcs] == sorted(f"{k}.cu" for k in kernels.KERNELS)
     out = kernels.library_path()
     assert out.parent == REPO / "build" / "glc_tpu_torch"
-    cmd = kernels.build_command(out, nvcc="nvcc")
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    assert cmd[-1] == str(kernels.SOURCE)
-    assert cmd[cmd.index("-o") + 1] == str(out)
-    src = kernels.SOURCE.read_text()
-    assert 'extern "C" int glc_imdct_window(' in src
-    assert "pallas_kernels.py" in src  # names the TPU kernel it replaces
+    objs = []
+    for src in srcs:
+        obj = out.parent / f"{src.stem}.o"
+        cmd = kernels.compile_command(src, obj, nvcc="nvcc")
+        assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and "-O3" in cmd and "-std=c++17" in cmd
+        assert "-shared" not in cmd
+        assert cmd[cmd.index("-o") + 1] == str(obj)
+        objs.append(obj)
+        text = src.read_text()
+        assert f'extern "C" int glc_{src.stem}(' in text
+        assert f'extern "C" int glc_{src.stem}_info(' in text
+    link = kernels.link_command(objs, out, nvcc="nvcc")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert link[link.index("-o") + 1] == str(out)
+    assert link[-len(objs):] == [str(o) for o in objs]
+    for cmd in (link, *(kernels.compile_command(s, s, "nvcc") for s in srcs)):
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    # each names what it replaces: the TPU kernel, or the XLA einsum
+    assert "pallas_kernels.py" in (PKG / "csrc" / "imdct_window.cu").read_text()
+    assert "glc_tpu/ops/mdct.py:67" in (PKG / "csrc" / "mdct_rows.cu").read_text()
+    assert "glc_tpu/ops/psycho.py:155" in (
+        PKG / "csrc" / "band_energy.cu").read_text()
 
 
 def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
-    """An edit of the source renames the library, so it is rebuilt."""
+    """An edit of any source renames the library, so it is rebuilt."""
     before = kernels.library_path()
-    edited = tmp_path / "imdct_window.cu"
-    edited.write_text(kernels.SOURCE.read_text() + "\n// edit\n")
+    for f in kernels.CSRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kernels, "CSRC_DIR", tmp_path)
-    after = kernels.library_path()
-    assert after.parent == before.parent and after.name != before.name
+    assert kernels.library_path() == before
+    for f in sorted(tmp_path.iterdir()):
+        f.write_text(f.read_text() + "\n// edit\n")
+        after = kernels.library_path()
+        assert after.parent == before.parent and after.name != before.name
+        before = after
 
 
 def test_package_sets_full_f32_matmul():
