@@ -32,7 +32,8 @@ Phases, each printing its own line(s):
    kernel are recorded by row count, and the run fails if a path launched
    it at a row count this phase did not check;
 5. encode kernels — mdct_rows (3xTF32 wgmma fed by TMA) and band_energy
-   (one block a row, a compensated in-order sum a band), the encode's
+   (a warp a row, each band cut into 33-bin compensated sums that the
+   lanes take and fold in order, rows streamed by cp.async), the encode's
    row-invariant products, against their plain PyTorch versions at the
    tile edges and at every row count the encode paths launch them with
    (`encode_rows`: each segment's frames x channels of every encode below,
@@ -43,8 +44,11 @@ Phases, each printing its own line(s):
    times (medians of 20, CUDA events) of each kernel, its plain version and
    one library call (a full-f32 torch.matmul against the table with norm
    folded in; one torch.einsum of the squares against the band mask), and
-   the bounds (`mdct_bound`, `band_bound`).  Their calls are recorded by
-   row count too;
+   the bounds (`mdct_bound`, `band_bound`); for band_energy also the
+   device times of 20 calls back to back (`_device_ms`: the host's call
+   overhead hidden), each time's share of the bound, and on rows with
+   NaN and Inf squares the plain version's NaN and +Inf bands.  Their
+   calls are recorded by row count too;
 6. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
    envelopes, 5 s of white noise, 1 s of silence) through
    Encoder.encode_pcm16 → save_encoded → load_encoded →
@@ -293,7 +297,9 @@ def phase_build():
     designs = {}
     for name in KERNEL_NAMES:
         i = info[name]
-        how = ("one block a row, a compensated in-order sum a band"
+        how = (f"a warp a row, {kernels.BAND_CHUNK}-bin compensated items "
+               f"over {kernels.BAND_LANES} lanes folded in order, cp.async, "
+               f"{i['stages']} stages"
                if name == "band_energy" else
                f"3xTF32 wgmma, TMA, {i['stages']} stages")
         designs[name] = (
@@ -317,6 +323,25 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def _device_ms(fn, launches: int = 20, runs: int = 5) -> float:
+    """The device time of one call of `fn`: `launches` calls queued behind
+    a ~10 ms device sleep, so that the host's call overhead is hidden and
+    they run back to back, timed with CUDA events; median of `runs`."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda._sleep(20_000_000)  # cycles
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
     return float(np.median(times))
 
 
@@ -467,14 +492,46 @@ def band_bound(M: int, n: int, bands: int) -> tuple[float, str]:
                   4.0 * (M * n + bands * n + M * bands))
 
 
+def check_band_energy_non_finite(tables) -> None:
+    """band_energy on rows of 0.01 holding NaN, Inf or squares that
+    overflow: the plain version's NaN and +Inf bands (a band is +Inf if
+    every non-finite square of its row lies in it and none is NaN, else
+    NaN), the finite sums within BAND_RTOL; a finite sum that overflows is
+    +Inf."""
+    n = tables.n
+    spots = [{500: np.inf}, {10: -np.inf}, {700: 3e19}, {200: np.nan},
+             {400: np.inf, 900: -np.inf}, {5: np.inf, 600: np.inf},
+             {500: np.inf, 501: np.nan}, {400: 1.5e19, 401: 1.5e19}, {}]
+    rows = np.full((len(spots), n), 0.01, np.float32)
+    for r, row in enumerate(spots):
+        for k, v in row.items():
+            rows[r, k] = v
+    c = torch.from_numpy(rows).cuda()
+    got = band_energy(c, tables.band_mask).cpu()
+    want = band_energy_reference(c, tables.band_mask).cpu()
+    finite = want.isfinite()
+    if not (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.isposinf(), want.isposinf())):
+        raise AssertionError(f"band_energy's NaN/Inf bands differ from "
+                             f"plain's:\n{got}\n{want}")
+    torch.testing.assert_close(got[finite], want[finite], rtol=BAND_RTOL,
+                               atol=0.0)
+    print(f"[encode kernels] band_energy on {len(spots)} rows with NaN, Inf "
+          f"and overflowing squares: plain's NaN and +Inf bands "
+          f"({int(got.isnan().sum())} NaN, {int(got.isposinf().sum())} +Inf), "
+          f"finite sums within rtol {BAND_RTOL}")
+
+
 def phase_encode_kernels(tables, designs: dict, rows):
     """mdct_rows and band_energy against their plain versions at each row
     count, their row invariance, and the times of the kernel, the plain
-    version and one library call beside the bound.  Returns
-    {kernel: {M: (max|kernel-plain|, ms, plain ms, library ms, bound ms,
-    bound by)}}."""
+    version and one library call beside the bound; band_energy also back
+    to back, and on rows with non-finite squares.  Returns {kernel: {M:
+    (max|kernel-plain|, ms, plain ms, library ms, bound ms, bound by[,
+    device ms, device plain ms, device library ms])}}."""
     n = tables.n
     bands = tables.band_mask.shape[0]
+    check_band_energy_non_finite(tables)
     rng = np.random.default_rng(2)
     M_max = max(rows)
     win_all = torch.from_numpy(
@@ -516,6 +573,7 @@ def phase_encode_kernels(tables, designs: dict, rows):
                 raise AssertionError(
                     f"{name} M={M}: error vs float64 {errs[0]:.3e} exceeds "
                     f"twice the plain version's {errs[1]:.3e}")
+            device = []
             if name == "mdct_rows":
                 args = (win, tables.cos_table, tables.norm)
                 times = [_median_ms(lambda: mdct_rows(*args)),
@@ -532,14 +590,26 @@ def phase_encode_kernels(tables, designs: dict, rows):
                              tables.band_mask))]
                 bound = band_bound(M, n, bands)
                 lib_name = "torch.einsum of the squares and the mask"
+                device = [_device_ms(lambda: band_energy(*args)),
+                          _device_ms(lambda: band_energy_reference(*args)),
+                          _device_ms(lambda: torch.einsum(
+                              "mk,mk,bk->mb", coeffs, coeffs,
+                              tables.band_mask))]
             print(f"[encode kernels] {name} ({designs[name]}) M={M}: "
                   f"max|kernel-plain| {diff:.3e} ({tol}); vs float64: kernel "
                   f"{errs[0]:.3e}, plain {errs[1]:.3e}, library "
                   f"{errs[2]:.3e}; == the rows of the {M_max}-row launch; "
-                  f"median of 20: kernel {times[0]:.4f} ms, plain "
+                  f"median of 20: kernel {times[0]:.4f} ms "
+                  f"({bound[0] / times[0]:.1%} of the bound), plain "
                   f"{times[1]:.4f} ms, library ({lib_name}) {times[2]:.4f} "
                   f"ms; bound {bound[0]:.4f} ms ({bound[1]})")
-            result[name][M] = (diff, *times, *bound)
+            if device:
+                print(f"[encode kernels] band_energy M={M} back to back "
+                      f"(device time a call, 20 queued, median of 5): kernel "
+                      f"{device[0]:.4f} ms ({bound[0] / device[0]:.1%} of the "
+                      f"bound), plain {device[1]:.4f} ms, library "
+                      f"{device[2]:.4f} ms")
+            result[name][M] = (diff, *times, *bound, *device)
     return result
 
 
@@ -1916,7 +1986,7 @@ def main(argv: list[str]) -> int:
     # kernel: (source, what it replaces, the main path's rows to report)
     table = {
         "imdct_window": ("glc_tpu_torch/csrc/imdct_window.cu",
-                         "glc_tpu/ops/pallas_kernels.py:47",
+                         "glc_tpu/ops/pallas_kernels.py:48",
                          2 * DEFAULT_CONFIG.decode_chunk_frames),
         "mdct_rows": ("glc_tpu_torch/csrc/mdct_rows.cu",
                       "glc_tpu/ops/mdct.py:67 (XLA einsum, not a Pallas "
@@ -1927,7 +1997,8 @@ def main(argv: list[str]) -> int:
     }
     entries = []
     for kernel, (source, replaces, rows) in table.items():
-        _diff, ms, plain_ms, lib_ms, bound_ms, bound_by = kern[kernel][rows]
+        _diff, ms, plain_ms, lib_ms, bound_ms, bound_by, *device = (
+            kern[kernel][rows])
         entries.append({
             "name": kernel,
             "route": "cuda",
@@ -1943,6 +2014,9 @@ def main(argv: list[str]) -> int:
             "rows": rows,
             "rows_checked": sorted(kern[kernel], reverse=True),
         })
+        if device:
+            entries[-1].update(zip(("device_ms", "device_plain_ms",
+                                    "device_library_ms"), device))
     entries[0]["sharded"] = sharded
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

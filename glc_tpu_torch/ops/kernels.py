@@ -18,8 +18,9 @@ build.
 The two products are 3xTF32 `wgmma` fed by TMA (``csrc/tf32x3.cuh``); they
 read their table as its TF32 split (`split_tf32`), made once per table
 tensor and cached: `table_split` the transposed table's for `imdct_window`,
-`cos_split` the table's own for `mdct_rows`.  `band_energy` reads each
-band's bin range, `band_ranges`, made once per band-mask tensor.
+`cos_split` the table's own for `mdct_rows`.  `band_energy` reads its work
+plan, `band_plan` (each band's bins cut into items of `BAND_CHUNK` bins, the
+items given to a warp's lanes), made once per band-mask tensor.
 
 Every ``.cu`` file under ``csrc/`` is compiled with nvcc on first use, one
 nvcc a source, all at once, and linked into one shared library with plain C
@@ -42,7 +43,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -154,8 +155,9 @@ def load_library() -> ctypes.CDLL:
             i32, i32, ptr,            # M, n, stream
         ]
         lib.glc_band_energy.argtypes = [
-            ptr, ptr, ptr,          # coeffs, ranges, out
-            i32, i32, i32, ptr,     # M, n, bands, stream
+            ptr, ptr, ptr,          # coeffs, plan, out
+            i32, i32, i32,          # M, n, bands
+            i32, i32, ptr,          # items, plan length, stream
         ]
         for name in KERNELS:
             getattr(lib, f"glc_{name}").restype = i32
@@ -227,7 +229,7 @@ def _cached(cache: WeakTensorKeyDictionary, key: torch.Tensor, make):
 
 _SPLITS = WeakTensorKeyDictionary()
 _COS_SPLITS = WeakTensorKeyDictionary()
-_RANGES = WeakTensorKeyDictionary()
+_PLANS = WeakTensorKeyDictionary()
 
 
 def table_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -256,7 +258,9 @@ def cos_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 cos_split.splits = 0
 
 
-def _ranges_of(band_mask: torch.Tensor) -> torch.Tensor:
+def _ranges_of(band_mask: torch.Tensor) -> np.ndarray:
+    """Each band's bins [lo, hi) as int32 [bands, 2] (0, 0 for an empty
+    band), for a band mask [bands, n] whose rows are runs of ones."""
     m = band_mask.detach().cpu().numpy()
     ranges = np.zeros((m.shape[0], 2), np.int32)
     for b, row in enumerate(m):
@@ -267,14 +271,79 @@ def _ranges_of(band_mask: torch.Tensor) -> torch.Tensor:
         if not (row[lo:hi] == 1.0).all():
             raise ValueError(f"band_mask row {b} is not one run of ones")
         ranges[b] = lo, hi
-    return torch.from_numpy(ranges).to(band_mask.device)
+    return ranges
 
 
-def band_ranges(band_mask: torch.Tensor) -> torch.Tensor:
-    """Each band's bins [lo, hi) as int32 [bands, 2] on the mask's device
-    (0, 0 for an empty band), for a band mask [bands, n] whose rows are
-    runs of ones; made once per mask tensor (one host copy of the mask)."""
-    return _cached(_RANGES, band_mask, _ranges_of)[0]
+BAND_CHUNK = 33   # bins a work item of band_energy (csrc/band_energy.cu)
+BAND_LANES = 32   # the lanes of the warp that takes a row
+BAND_MAX_ITEMS = 192  # csrc/band_energy.cu's MAX_ITEMS
+
+
+class BandPlan(NamedTuple):
+    """band_energy's work for one band mask [bands, n] (`band_plan`).
+
+    Each band's bins are cut into items of `BAND_CHUNK` consecutive bins
+    counted from its lo, the last one shorter; runs of bins that no band
+    holds get items too, after the bands' (summed only to find non-finite
+    squares).  The items go to the lanes longest first, each to the lane
+    with the fewest bins so far (the lowest such lane)."""
+
+    ranges: np.ndarray      # [bands, 2]: each band's bins [lo, hi)
+    items: np.ndarray       # [I, 2]: each item's bins [lo, hi)
+    band_first: np.ndarray  # [bands + 1]: band b's items, in bin order
+    order: np.ndarray       # [I]: the items lane by lane, in summing order
+    lane_first: np.ndarray  # [33]: where each lane's items start in order
+    lane_bins: np.ndarray   # [32]: the bins each lane sums
+    table: torch.Tensor     # the kernel's int32 copy, on the mask's device
+
+
+def _chunks(lo: int, hi: int) -> List[Tuple[int, int]]:
+    return [(k, min(k + BAND_CHUNK, hi)) for k in range(lo, hi, BAND_CHUNK)]
+
+
+def _plan_of(band_mask: torch.Tensor) -> BandPlan:
+    ranges = _ranges_of(band_mask)
+    items, band_first = [], [0]
+    covered = np.zeros(band_mask.shape[1], bool)
+    for lo, hi in ranges:
+        items += _chunks(int(lo), int(hi))
+        band_first.append(len(items))
+        covered[lo:hi] = True
+    edges = np.flatnonzero(np.diff(np.r_[0, ~covered, 0]))
+    for lo, hi in zip(edges[::2], edges[1::2]):  # the runs no band holds
+        items += _chunks(int(lo), int(hi))
+    if len(items) > BAND_MAX_ITEMS:
+        raise ValueError(f"band_mask needs {len(items)} work items, the "
+                         f"kernel holds {BAND_MAX_ITEMS}")
+    lengths = [hi - lo for lo, hi in items]
+    lanes: List[List[int]] = [[] for _ in range(BAND_LANES)]
+    lane_bins = np.zeros(BAND_LANES, np.int32)
+    for i in sorted(range(len(items)), key=lambda i: (-lengths[i], i)):
+        lane = int(np.argmin(lane_bins))
+        lanes[lane].append(i)
+        lane_bins[lane] += lengths[i]
+    items_np = np.asarray(items, np.int32).reshape(-1, 2)
+    order = np.asarray([i for lane in lanes for i in lane], np.int32)
+    lane_first = np.cumsum([0] + [len(lane) for lane in lanes]).astype(np.int32)
+    band_first_np = np.asarray(band_first, np.int32)
+    table = np.concatenate([items_np[:, 0], items_np[:, 1], order, lane_first,
+                            lane_bins, band_first_np, ranges[:, 0],
+                            ranges[:, 1]]).astype(np.int32)
+    return BandPlan(ranges, items_np, band_first_np, order, lane_first,
+                    lane_bins, torch.from_numpy(table).to(band_mask.device))
+
+
+def band_plan(band_mask: torch.Tensor) -> BandPlan:
+    """`BandPlan` of a band mask [bands, n] whose rows are runs of ones:
+    made once per mask tensor from one host copy of it (and again only if
+    it is changed in place), held as long as the mask lives;
+    ``band_plan.plans`` counts the plans made."""
+    plan, made = _cached(_PLANS, band_mask, _plan_of)
+    band_plan.plans += made
+    return plan
+
+
+band_plan.plans = 0
 
 
 def imdct_window_reference(coeffs: torch.Tensor, cos_table: torch.Tensor,
@@ -411,7 +480,9 @@ def band_energy(coeffs: torch.Tensor, band_mask: torch.Tensor) -> torch.Tensor:
 
     The inputs are checked on either device; then a CPU `coeffs` takes
     `band_energy_reference`, and a CUDA one launches the kernel on the
-    current stream or raises.  Each row's sums are the same bits at any M.
+    current stream or raises.  Each row's sums are the same bits at any M;
+    a row with a NaN or Inf square gets the plain version's NaN and +Inf
+    bands.
     """
     M, n = _rows_of("band_energy", coeffs)
     dev = coeffs.device
@@ -429,9 +500,10 @@ def band_energy(coeffs: torch.Tensor, band_mask: torch.Tensor) -> torch.Tensor:
     if M == 0:
         return out
     lib = load_library()
-    ranges = band_ranges(band_mask)
-    rc = lib.glc_band_energy(coeffs.data_ptr(), ranges.data_ptr(),
-                             out.data_ptr(), M, n, bands, _stream(dev))
+    plan = band_plan(band_mask)
+    rc = lib.glc_band_energy(coeffs.data_ptr(), plan.table.data_ptr(),
+                             out.data_ptr(), M, n, bands, len(plan.items),
+                             plan.table.numel(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"band_energy launch failed: CUDA error {rc}")
     band_energy.launches += 1

@@ -6,15 +6,23 @@ independence of how the frames are cut into segments, on both packages.
 `band_energy` the one of glc_tpu/ops/psycho.py:155.  On the CPU each
 wrapper computes its plain version, and the CPU encode runs its products
 in fixed row blocks (ops/mdct.py::fixed_rows_matmul); the tests here hold
-the plain versions to the JAX package, a CPU model of band_energy's
-compensated in-order sum to the plain version and to float64, the
-wrappers' input checks, and tests/test_chunking.py's encode cases on both
-packages.  Bounds, each with its reason:
+the plain versions to the JAX package, a numpy model of band_energy's
+arithmetic (`band_energy_model`: 33-bin compensated items folded in
+order) to the plain version, to float64 and to the earlier in-order sum,
+its plan (`band_plan`), its NaN and +Inf bands on rows with non-finite
+squares to the plain version's and the JAX einsum's, the wrappers' input
+checks, and tests/test_chunking.py's encode cases on both packages.
+Bounds, each with its reason:
 - mdct_rows_reference against the JAX mdct: atol = rtol = 2e-5, the bar of
   tests/test_pallas.py (both are full-f32 products, summed in other
   orders);
 - band_energy_reference against the JAX einsum: rtol 1e-5 (sums of
-  squares are positive, so no cancellation);
+  squares are positive, so no cancellation), and the model against the
+  plain version the same; the model's error against float64 no more than
+  twice plain's;
+- the model against the in-order sum: bits equal on bands of <= 33 bins,
+  rtol 4 * 2**-24 on the wider ones (compensated sums in another order);
+  the kernel against the model: bits equal;
 - the port's container against itself at other segment sizes: bytes
   equal; against the JAX package's: the pair contract (parity.py).
 
@@ -35,15 +43,17 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from utils import generate_frequency_sweep, generate_white_noise  # noqa: E402
+from utils import (  # noqa: E402
+    generate_frequency_sweep, generate_sine_wave, generate_white_noise,
+)
 
 import glc_tpu_torch  # noqa: E402,F401  (full-f32 matmul settings)
 from glc_tpu_torch import DEFAULT_CONFIG, Encoder, serialize_encoded  # noqa: E402
 from glc_tpu_torch.codec.tables import get_codec_tables  # noqa: E402
 from glc_tpu_torch.ops import kernels  # noqa: E402
 from glc_tpu_torch.ops.kernels import (  # noqa: E402
-    band_energy, band_energy_reference, band_ranges, cos_split, mdct_rows,
-    mdct_rows_reference, split_tf32, table_split,
+    band_energy, band_energy_reference, band_plan, cos_split,
+    mdct_rows, mdct_rows_reference, split_tf32, table_split,
 )
 from glc_tpu_torch.parity import check_containers  # noqa: E402
 
@@ -112,57 +122,298 @@ def test_band_energy_reference_matches_jax_einsum(tables, M):
 
 # --- band_energy's arithmetic, modelled on the CPU ---
 
-def band_energy_model(coeffs: np.ndarray, ranges: np.ndarray) -> np.ndarray:
-    """csrc/band_energy.cu in numpy float32: each band's squares added in
-    ascending k, each square and add rounded on its own, the rounding error
-    of each add found by TwoSum and summed beside it."""
+F32_MAX = np.finfo(np.float32).max
+
+
+def _two_sum_add(s, err, x):
+    """s + x == t + e exactly (TwoSum), in float32: returns (t, err + e)."""
+    t = s + x
+    xv = t - s
+    e = (s - (t - xv)) + (x - xv)
+    return t, err + e
+
+
+def inorder_model(coeffs: np.ndarray, ranges: np.ndarray) -> np.ndarray:
+    """The earlier band_energy kernel (one thread a band) in numpy float32:
+    each band's squares added in ascending k, each square and add rounded on
+    its own, the rounding error of each add found by TwoSum and summed
+    beside it; the band is s + err.  The yardstick of the chunked sum."""
     f32 = np.float32
     out = np.zeros((coeffs.shape[0], len(ranges)), f32)
-    for b, (lo, hi) in enumerate(ranges):
-        s = np.zeros(coeffs.shape[0], f32)
-        err = np.zeros(coeffs.shape[0], f32)
-        for k in range(lo, hi):
-            x = coeffs[:, k] * coeffs[:, k]
-            t = (s + x).astype(f32)
-            xv = (t - s).astype(f32)
-            e = ((s - (t - xv)) + (x - xv)).astype(f32)
-            err = (err + e).astype(f32)
-            s = t
-        out[:, b] = s + err
+    with np.errstate(invalid="ignore", over="ignore"):
+        for b, (lo, hi) in enumerate(ranges):
+            s = np.zeros(coeffs.shape[0], f32)
+            err = np.zeros(coeffs.shape[0], f32)
+            for k in range(lo, hi):
+                s, err = _two_sum_add(s, err, coeffs[:, k] * coeffs[:, k])
+            out[:, b] = s + err
     return out
+
+
+def band_energy_model(coeffs: np.ndarray, ranges: np.ndarray,
+                      chunk: int = kernels.BAND_CHUNK) -> np.ndarray:
+    """csrc/band_energy.cu in numpy float32, op for op: each band cut into
+    items of `chunk` bins from its lo; an item the in-order compensated sum
+    (s, e); a band's items folded in ascending order (E += e_i, then
+    S += s_i by TwoSum, its error into E); the band S + E, or S where S is
+    +Inf.  A row with a NaN or Inf square: a band is +Inf if every such
+    square lies in it and none is NaN, else NaN."""
+    f32 = np.float32
+    M, n = coeffs.shape
+    out = np.zeros((M, len(ranges)), f32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        sq = coeffs * coeffs
+        for b, (lo, hi) in enumerate(ranges):
+            S = E = np.zeros(M, f32)
+            for i, start in enumerate(range(lo, hi, chunk)):
+                s = e = np.zeros(M, f32)
+                for k in range(start, min(start + chunk, hi)):
+                    s, e = _two_sum_add(s, e, sq[:, k])
+                if i == 0:
+                    S, E = s, e
+                else:
+                    S, E = _two_sum_add(S, E + e, s)
+            out[:, b] = np.where(np.isinf(S), S, S + E)
+        bad = ~(sq <= F32_MAX)
+        rows = bad.any(axis=1)
+        k = np.arange(n)
+        bad_lo = np.where(bad, k, n).min(axis=1)[:, None]
+        bad_hi = np.where(bad, k, -1).max(axis=1)[:, None]
+        inside = (~np.isnan(sq).any(axis=1)[:, None]
+                  & (bad_lo >= ranges[:, 0]) & (bad_hi < ranges[:, 1]))
+        out[rows] = np.where(inside, np.inf, np.nan)[rows].astype(f32)
+    return out
+
+
+def _ranges(mask: torch.Tensor) -> np.ndarray:
+    return band_plan(mask.cpu()).ranges
 
 
 def test_band_ranges_are_the_band_edges(tables):
     from glc_tpu_torch.ops.psycho import get_perceptual_tables
 
     edges = get_perceptual_tables(N, RATE).band_edges
-    r = band_ranges(tables.band_mask)
-    assert r.dtype == torch.int32 and r.shape == (tables.band_mask.shape[0], 2)
+    plan = band_plan(tables.band_mask)
+    r = plan.ranges
+    assert r.dtype == np.int32 and r.shape == (tables.band_mask.shape[0], 2)
     nb = len(edges) - 1
-    np.testing.assert_array_equal(r[:nb, 0].numpy(), edges[:-1])
-    np.testing.assert_array_equal(r[:nb, 1].numpy(), edges[1:])
+    np.testing.assert_array_equal(r[:nb, 0], edges[:-1])
+    np.testing.assert_array_equal(r[:nb, 1], edges[1:])
     assert not r[nb:].any()  # the padding bands are empty
-    assert band_ranges(tables.band_mask) is r  # made once per mask
+    assert band_plan(tables.band_mask) is plan  # made once per mask
 
 
 def test_band_ranges_refuse_a_split_band(tables):
     mask = tables.band_mask.clone()
-    lo, hi = band_ranges(mask)[3].tolist()
+    lo, hi = band_plan(mask).ranges[3].tolist()
     mask[3, (lo + hi) // 2] = 0.0
     with pytest.raises(ValueError, match="run of ones"):
-        band_ranges(mask)
+        band_plan(mask)
 
 
-@pytest.mark.parametrize("M", [1, 129])
-def test_band_energy_model_matches_plain_and_float64(tables, M):
-    c = _coeffs(M, seed=7 + M)
-    model = band_energy_model(c.numpy(), band_ranges(tables.band_mask).numpy())
-    plain = band_energy_reference(c, tables.band_mask).numpy()
+def _check_model(c: torch.Tensor, mask: torch.Tensor) -> np.ndarray:
+    """The model against plain (rtol 1e-5) and float64 (no more than
+    twice plain's error); returns the model's sums."""
+    model = band_energy_model(c.numpy(), _ranges(mask))
+    plain = band_energy_reference(c, mask).numpy()
     np.testing.assert_allclose(model, plain, rtol=1e-5, atol=0)
-    exact = (c.double() ** 2 @ tables.band_mask.double().T).numpy()
+    exact = (c.double() ** 2 @ mask.double().T).numpy()
     err_model = np.abs(model - exact).max()
     err_plain = np.abs(plain - exact).max()
     assert err_model <= 2 * err_plain
+    return model
+
+
+@pytest.mark.parametrize("M", [1, 129, 1292])
+def test_band_energy_model_matches_plain_and_float64(tables, M):
+    _check_model(_coeffs(M, seed=7 + M), tables.band_mask)
+
+
+@pytest.mark.parametrize("M", [129, 1292])
+def test_band_energy_model_matches_plain_and_float64_at_48khz(M):
+    """The 48 kHz tables: 49 bands of <= 11 bins and a 683-bin top band."""
+    tb = get_codec_tables(N, FRAME, 48000, "cpu")
+    assert (np.diff(_ranges(tb.band_mask), axis=1).max()) == 683
+    _check_model(_coeffs(M, seed=3 + M), tb.band_mask)
+
+
+@pytest.mark.parametrize("rate", [44100, 48000])
+def test_narrow_bands_keep_the_inorder_bits(rate):
+    """A band of <= BAND_CHUNK bins is one item: the in-order sum, bit for
+    bit (49 of the 50 bands); the wide top band within an ulp or so."""
+    tb = get_codec_tables(N, FRAME, rate, "cpu")
+    ranges = _ranges(tb.band_mask)
+    c = _coeffs(257, seed=rate).numpy()
+    model = band_energy_model(c, ranges)
+    inorder = inorder_model(c, ranges)
+    narrow = (ranges[:, 1] - ranges[:, 0]) <= kernels.BAND_CHUNK
+    assert narrow.sum() == 49
+    np.testing.assert_array_equal(model[:, narrow], inorder[:, narrow])
+    np.testing.assert_allclose(model[:, ~narrow], inorder[:, ~narrow],
+                               rtol=4 * 2.0 ** -24, atol=0)
+
+
+def _synthetic_mask() -> torch.Tensor:
+    """Bands of exactly W, W + 1 and n bins, an empty padding band, and a
+    band that leaves bins 800-1023 out of every band but the n-bin one."""
+    W = kernels.BAND_CHUNK
+    mask = torch.zeros(5, N)
+    for b, (lo, hi) in enumerate([(0, W), (W, 2 * W + 1), (0, N), (0, 0),
+                                  (2 * W + 1, 800)]):
+        mask[b, lo:hi] = 1.0
+    return mask
+
+
+def test_band_energy_model_on_a_synthetic_mask():
+    W = kernels.BAND_CHUNK
+    mask = _synthetic_mask()
+    c = _coeffs(129, seed=11)
+    model = _check_model(c, mask)
+    inorder = inorder_model(c.numpy(), _ranges(mask))
+    np.testing.assert_array_equal(model[:, 0], inorder[:, 0])  # W bins: one item
+    assert not model[:, 3].any()  # the empty band
+    plan = band_plan(mask)
+    assert np.diff(plan.band_first).tolist() == [1, 2, -(-N // W), 0,
+                                                 -(-(800 - 2 * W - 1) // W)]
+
+
+@pytest.mark.parametrize("rate", [44100, 48000])
+def test_band_plan_cuts_every_band_and_fills_the_lanes(rate):
+    tb = get_codec_tables(N, FRAME, rate, "cpu")
+    plan = band_plan(tb.band_mask)
+    W = kernels.BAND_CHUNK
+    want = [(k, min(k + W, hi)) for lo, hi in _ranges(tb.band_mask)
+            for k in range(lo, hi, W)]
+    assert [tuple(i) for i in plan.items] == want  # the bands cover every bin
+    for b, (lo, hi) in enumerate(plan.ranges):
+        its = plan.items[plan.band_first[b]:plan.band_first[b + 1]]
+        assert (its[:, 0] == np.arange(lo, hi, W)).all() or lo == hi
+    assert sorted(plan.order) == list(range(len(plan.items)))
+    lens = plan.items[:, 1] - plan.items[:, 0]
+    for lane in range(kernels.BAND_LANES):
+        mine = plan.order[plan.lane_first[lane]:plan.lane_first[lane + 1]]
+        assert plan.lane_bins[lane] == lens[mine].sum()
+    # the lanes share the row's bins to within an item
+    assert plan.lane_bins.max() <= -(-N // kernels.BAND_LANES) + W
+    # the kernel's table: the same arrays, back to back
+    table = plan.table.numpy()
+    parts = [plan.items[:, 0], plan.items[:, 1], plan.order, plan.lane_first,
+             plan.lane_bins, plan.band_first, plan.ranges[:, 0],
+             plan.ranges[:, 1]]
+    np.testing.assert_array_equal(table, np.concatenate(parts))
+    assert table.dtype == np.int32
+
+
+def test_band_plan_covers_the_bins_no_band_holds():
+    """Bins outside every band get items of their own, after the bands'."""
+    mask = torch.zeros(3, N)
+    mask[0, 10:20] = 1.0
+    mask[1, 100:200] = 1.0
+    plan = band_plan(mask)
+    assert plan.band_first[-1] == 1 + 4
+    gaps = [tuple(i) for i in plan.items[plan.band_first[-1]:]]
+    W = kernels.BAND_CHUNK
+    want = [(0, 10)] + [(k, min(k + W, 100)) for k in range(20, 100, W)] + \
+        [(k, min(k + W, N)) for k in range(200, N, W)]
+    assert gaps == want
+
+
+def test_band_plan_is_made_once_and_follows_an_edit(tables):
+    mask = tables.band_mask.clone()
+    before = band_plan.plans
+    plan = band_plan(mask)
+    assert band_plan(mask) is plan and band_plan.plans == before + 1
+    mask[49, 1000:] = 0.0  # the top band ends at bin 1000 now
+    edited = band_plan(mask)
+    assert band_plan.plans == before + 2
+    assert edited.ranges[49].tolist() == [371, 1000]
+    assert edited.items[edited.band_first[50] - 1].tolist() == [998, 1000]
+    assert band_plan(mask) is edited
+
+
+def test_band_plan_refuses_too_many_items():
+    mask = torch.zeros(kernels.BAND_MAX_ITEMS + 1, N)
+    for b in range(kernels.BAND_MAX_ITEMS + 1):
+        mask[b, b % N] = 1.0
+    with pytest.raises(ValueError, match="work items"):
+        band_plan(mask)
+
+
+# rows of 0.01 with non-finite squares: {name: {bin: value}}
+NON_FINITE = {
+    "inf_in_top_band": {500: np.inf},
+    "minus_inf_in_band_2": {10: -np.inf},
+    "square_overflows": {700: 3e19},
+    "nan": {200: np.nan},
+    "two_infs_one_band": {400: np.inf, 900: -np.inf},
+    "infs_in_two_bands": {5: np.inf, 600: np.inf},
+    "inf_and_nan": {500: np.inf, 501: np.nan},
+    "finite_sum_overflows": {400: 1.5e19, 401: 1.5e19},
+    "finite": {},
+}
+
+
+def _non_finite_rows() -> torch.Tensor:
+    rows = np.full((len(NON_FINITE), N), 0.01, np.float32)
+    for r, spots in enumerate(NON_FINITE.values()):
+        for k, v in spots.items():
+            rows[r, k] = v
+    return torch.from_numpy(rows)
+
+
+def _assert_same_pattern(got: np.ndarray, want: np.ndarray) -> None:
+    """The same NaN and +Inf bands, and the finite sums within rtol 1e-5."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=0)
+
+
+def test_non_finite_rows_plain_matches_jax_einsum(tables):
+    import jax.numpy as jnp
+    from jax.lax import Precision
+
+    from glc_tpu.ops.psycho import get_perceptual_tables
+
+    c = _non_finite_rows().numpy()
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = np.asarray(jnp.einsum(
+            "...n,bn->...b", c * c, get_perceptual_tables(N, RATE).band_mask,
+            precision=Precision.HIGHEST))
+    plain = band_energy_reference(torch.from_numpy(c), tables.band_mask).numpy()
+    _assert_same_pattern(plain, want)
+    assert np.isnan(plain[0]).sum() == 49 and np.isposinf(plain[0, 49])
+
+
+def test_non_finite_rows_model_matches_plain(tables):
+    """The model (the kernel's arithmetic) gives plain's NaN and +Inf bands
+    on every crafted row; the in-order sum did not: NaN in the band of an
+    Inf, finite sums in the others."""
+    c = _non_finite_rows()
+    plain = band_energy_reference(c, tables.band_mask).numpy()
+    model = band_energy_model(c.numpy(), _ranges(tables.band_mask))
+    _assert_same_pattern(model, plain)
+    names = list(NON_FINITE)
+    assert np.isposinf(model[names.index("finite_sum_overflows"), 49])
+    assert np.isfinite(model[names.index("finite_sum_overflows"), :49]).all()
+    inorder = inorder_model(c.numpy(), _ranges(tables.band_mask))
+    assert np.isnan(inorder[0, 49]) and np.isfinite(inorder[0, :49]).all()
+
+
+def test_non_finite_rows_on_a_synthetic_mask():
+    """Overlapping bands, an empty band and bins no band holds: an Inf in
+    bins 800-1023 lies only in the n-bin band; an Inf in bin 5 lies in
+    bands 0 and 2."""
+    mask = _synthetic_mask()
+    rows = np.full((3, N), 0.01, np.float32)
+    rows[0, 900] = np.inf
+    rows[1, 5] = np.inf
+    rows[2, 5], rows[2, 900] = np.inf, np.inf
+    c = torch.from_numpy(rows)
+    plain = band_energy_reference(c, mask).numpy()
+    model = band_energy_model(rows, _ranges(mask))
+    _assert_same_pattern(model, plain)
+    assert np.isposinf(model[0, 2]) and np.isposinf(model[1, [0, 2]]).all()
 
 
 # --- the wrappers' checks, the same on either device ---
@@ -327,15 +578,57 @@ def test_cuda_band_energy_matches_plain(cuda_tables, M):
     err_kernel = (out.double() - exact).abs().max().item()
     err_plain = (ref.double() - exact).abs().max().item()
     assert err_kernel <= 2 * err_plain
-    model = band_energy_model(c.cpu().numpy(),
-                              band_ranges(tb.band_mask.cpu()).numpy())
+    model = band_energy_model(c.cpu().numpy(), _ranges(tb.band_mask))
     np.testing.assert_array_equal(out.cpu().numpy(), model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", EDGES)
+def test_cuda_band_energy_matches_the_model_at_48khz(cuda_tables, M):
+    tb = get_codec_tables(N, FRAME, 48000, "cuda")
+    c = _coeffs(M, seed=2 * M).cuda()
+    out = band_energy(c, tb.band_mask)
+    model = band_energy_model(c.cpu().numpy(), _ranges(tb.band_mask))
+    np.testing.assert_array_equal(out.cpu().numpy(), model)
+
+
+@pytest.mark.cuda
+def test_cuda_band_energy_on_a_synthetic_mask(cuda_tables):
+    """Bands of W, W + 1 and n bins, an empty band and bins no band holds,
+    with finite and non-finite rows: the model's bits."""
+    mask = _synthetic_mask().cuda()
+    rows = _coeffs(130, seed=5).numpy()
+    rows[0, 900] = rows[1, 5] = np.inf
+    rows[2, 5], rows[2, 900] = np.inf, np.nan
+    out = band_energy(torch.from_numpy(rows).cuda(), mask)
+    model = band_energy_model(rows, _ranges(mask))
+    np.testing.assert_array_equal(out.cpu().numpy(), model)
+
+
+@pytest.mark.cuda
+def test_cuda_band_energy_non_finite_rows(cuda_tables):
+    """The crafted rows on the card: plain's NaN and +Inf bands (plain on
+    the card and on the CPU), and the model's bits, at any offset in a
+    larger launch."""
+    tb = cuda_tables
+    rows = _non_finite_rows()
+    c = torch.cat([_coeffs(300, seed=9), rows, _coeffs(41, seed=10)]).cuda()
+    out = band_energy(c, tb.band_mask).cpu().numpy()
+    alone = band_energy(rows.cuda(), tb.band_mask).cpu().numpy()
+    np.testing.assert_array_equal(out[300:300 + len(rows)], alone)
+    _assert_same_pattern(alone, band_energy_reference(
+        rows.cuda(), tb.band_mask).cpu().numpy())
+    _assert_same_pattern(alone, band_energy_reference(
+        rows, tb.band_mask.cpu()).numpy())
+    np.testing.assert_array_equal(
+        out, band_energy_model(c.cpu().numpy(), _ranges(tb.band_mask)))
 
 
 @pytest.mark.cuda
 def test_cuda_kernels_are_row_invariant(cuda_tables):
     """Rows taken from an 8192-row launch equal the same rows launched at
-    1, 127 and 1292 rows, bit for bit, at any offset."""
+    1, 127 and 1292 rows, bit for bit, at any offset; band_energy's rows
+    also those of a 65536-row launch."""
     tb = cuda_tables
     win = _win(8192, tb, seed=3).cuda()
     coeffs = mdct_rows(win, tb.cos_table, tb.norm)
@@ -347,6 +640,45 @@ def test_cuda_kernels_are_row_invariant(cuda_tables):
             assert torch.equal(c, coeffs[rows])
             s = band_energy(coeffs[rows].contiguous(), tb.band_mask)
             assert torch.equal(s, sums[rows])
+    big = torch.cat([_coeffs(20000, seed=4).cuda(), coeffs,
+                     _coeffs(65536 - 28192, seed=6).cuda()])
+    sums_big = band_energy(big, tb.band_mask)
+    assert torch.equal(sums_big[20000:28192], sums)
+    for M in (1, 127, 1292, 8192):
+        for start in (0, 65536 - M, 31337):
+            rows = slice(start, start + M)
+            s = band_energy(big[rows].contiguous(), tb.band_mask)
+            assert torch.equal(s, sums_big[rows])
+
+
+# NaN/Inf samples: tests/test_torch_quirks.py's, and the same without the
+# NaN (there the card's 3xTF32 MDCT gives NaN where the CPU's gives +-Inf)
+HOSTILE = {"nan_inf": {100: np.nan, 200: np.inf, 300: -np.inf},
+           "inf_only": {200: np.inf, 300: -np.inf}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("case", list(HOSTILE))
+def test_cuda_encode_nan_inf_input(cuda_tables, case, channels):
+    """tests/test_torch_quirks.py::test_encode_nan_inf_input on the card:
+    a valid container that round-trips to the input's length, within the
+    pair contract of the CPU port's."""
+    from glc_tpu_torch import Decoder, deserialize_encoded
+
+    s = generate_sine_wave(440.0, RATE, channels, 0.2)
+    for k, v in HOSTILE[case].items():
+        s[k] = v
+    encoded = {}
+    for dev in ("cuda", "cpu"):
+        ea = Encoder(RATE, device=dev).encode(s, channels)
+        fs = ea.frame_set
+        assert len(fs.pairs) == int(fs.nnz.sum())
+        back = deserialize_encoded(serialize_encoded(ea))
+        out = Decoder(channels, RATE, device=dev).decode(back)
+        assert len(out) == len(s)
+        encoded[dev] = ea
+    check_containers(encoded["cuda"], encoded["cpu"])
 
 
 @pytest.mark.cuda
