@@ -13,7 +13,9 @@ Phases, each printing its own line(s):
    second call's seconds;
 3. build  — the three hand-written kernels of glc_tpu_torch/csrc/
    (imdct_window, mdct_rows, band_energy): the registers, spills and
-   shared memory the build gave each;
+   shared memory the build gave each, and each mdct_rows tile shape's
+   (the run fails if one spills, or asks for other shared memory than
+   kernels.mdct_smem_bytes says);
 4. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
    PyTorch version at every edge of its 128-row tile (1, 63, 64, 65, 127,
    128, 129), at a ragged 1000, and at every row count the paths below
@@ -44,11 +46,14 @@ Phases, each printing its own line(s):
    times (medians of 20, CUDA events) of each kernel, its plain version and
    one library call (a full-f32 torch.matmul against the table with norm
    folded in; one torch.einsum of the squares against the band mask), and
-   the bounds (`mdct_bound`, `band_bound`); for band_energy also the
-   device times of 20 calls back to back (`_device_ms`: the host's call
-   overhead hidden), each time's share of the bound, and on rows with
-   NaN and Inf squares the plain version's NaN and +Inf bands.  Their
-   calls are recorded by row count too;
+   the bounds (`mdct_bound`, `band_bound`); the same three again as device
+   times of 20 calls back to back (`_device_ms`: the host's call overhead
+   hidden), each kernel time's share of the bound; for mdct_rows the plan
+   the chooser takes at each row count and 3xTF32's floor (`mdct_floor`),
+   and every plan the chooser can return (and each tile shape at 1 and 7
+   blocks) on the same 8192 rows, bit for bit equal (`check_mdct_plans`);
+   for band_energy, on rows with NaN and Inf squares, the plain version's
+   NaN and +Inf bands.  Their calls are recorded by row count too;
 6. main path — a 180 s, 44.1 kHz, 16-bit stereo signal (seeded tones with
    envelopes, 5 s of white noise, 1 s of silence) through
    Encoder.encode_pcm16 → save_encoded → load_encoded →
@@ -151,7 +156,22 @@ times encode_pcm16 of the 180 s signal in this checkout and in another
     python3 chip_smoke.py --encode-kernels-ab
 
 times it in one process with the encode's kernels and with their plain
-versions in their place, in alternating pairs (`encode_kernels_ab`).
+versions in their place, in alternating pairs (`encode_kernels_ab`);
+
+    python3 chip_smoke.py --kernel-ab OTHER_CHECKOUT
+
+runs mdct_rows at every row count of the encode paths and imdct_window at
+every row count of the decode paths on the same seeded rows in this
+checkout and in another, in four processes (other, this, this, other),
+fails unless the outputs are the same bits, and prints each process's
+back-to-back times (`kernel_ab`);
+
+    python3 chip_smoke.py --mdct-plans
+
+times every mdct_rows tile shape back to back at those row counts beside
+the chooser's pick and torch.matmul, and samples the SM clock and power
+while the largest launch runs (`mdct_plans`: the measurement behind
+kernels.mdct_rows_plan).
 """
 
 from __future__ import annotations
@@ -220,6 +240,7 @@ SECONDS = 180
 KERNEL_TOL = 2e-5
 BAND_RTOL = 1e-5       # sums of squares: positive, no cancellation
 KERNEL_EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
+PLAN_CHECK_ROWS = 8192  # the rows every mdct_rows plan runs on
 KERNEL_NAMES = ("imdct_window", "mdct_rows", "band_energy")
 INVARIANCE_CHUNKS = (4096, 512, 1000)  # encode_chunk_frames of phase 8
 QUALITY_SECONDS = 5.0  # bench.py's quality_stereo_5s
@@ -290,24 +311,44 @@ def phase_warmup():
     return t_cold
 
 
-def phase_build():
-    """The kernels' build (registers, spills, shared memory); returns a
-    design line per kernel for the kernel phases."""
+def phase_build(strict: bool = True):
+    """The kernels' build (registers, spills, shared memory), and each
+    mdct_rows tile shape's: fails (if `strict`) on a spill or on a shared
+    memory size that the plan model (kernels.mdct_smem_bytes) does not
+    know; returns a design line per kernel for the kernel phases."""
     info = kernels.kernel_info()
     designs = {}
+
+    def built(i: dict) -> str:
+        return (f"{i['registers']} regs/thread, {i['local_bytes']} B local "
+                f"(spills), smem {i['static_smem']} B static + "
+                f"{i['dynamic_smem']} B dynamic, {i['stages']} stages")
+
     for name in KERNEL_NAMES:
         i = info[name]
-        how = (f"a warp a row, {kernels.BAND_CHUNK}-bin compensated items "
-               f"over {kernels.BAND_LANES} lanes folded in order, cp.async, "
-               f"{i['stages']} stages"
-               if name == "band_energy" else
-               f"3xTF32 wgmma, TMA, {i['stages']} stages")
-        designs[name] = (
-            f"{how}; {i['registers']} regs/thread, {i['local_bytes']} B "
-            f"local, smem {i['static_smem']} B static + {i['dynamic_smem']} B "
-            f"dynamic")
+        how = {"band_energy": f"a warp a row, {kernels.BAND_CHUNK}-bin "
+                              f"compensated items over {kernels.BAND_LANES} "
+                              f"lanes folded in order, cp.async",
+               "mdct_rows": "3xTF32 wgmma, TMA, ping-pong warpgroups, "
+                            "persistent grid, tile shape by M",
+               }.get(name, "3xTF32 wgmma, TMA")
+        designs[name] = f"{how}; {built(i)}"
         print(f"[build] {name} ({kernels.library_path().name}): "
               f"{designs[name]}")
+    faults = []
+    for rows, cols in kernels.MDCT_TILES:
+        i = info[f"mdct_rows{(rows, cols)}"]
+        print(f"[build] mdct_rows tile {rows} x {cols}: {built(i)}")
+        if i["local_bytes"]:
+            faults.append(f"{(rows, cols)} spills {i['local_bytes']} B")
+        if i["dynamic_smem"] != kernels.mdct_smem_bytes(rows, cols):
+            faults.append(f"{(rows, cols)} asks for {i['dynamic_smem']} B, "
+                          f"the plan model "
+                          f"{kernels.mdct_smem_bytes(rows, cols)} B")
+    if faults:
+        if strict:
+            raise AssertionError(f"mdct_rows: {faults}")
+        print(f"[build] FAULTS: {faults}")
     return designs
 
 
@@ -484,6 +525,50 @@ def mdct_bound(M: int, n: int) -> tuple[float, str]:
                   4.0 * (M * 2 * n + n * 2 * n + M * n))
 
 
+def mdct_floor(M: int, n: int) -> float:
+    """3xTF32's floor for mdct_rows on M rows (ms): its three TF32 products
+    at the TF32 peak, three times the one product's operations bound."""
+    return 3 * 2.0 * M * 2 * n * n / PEAK_TF32_FLOPS * 1e3
+
+
+def card_sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def every_mdct_plan(M: int, n: int) -> list:
+    """Every plan of mdct_rows on M rows that the chooser can return on this
+    card (each tile shape with a grid of min(units, SMs)), and each tile
+    shape with 1 and 7 blocks, which walk many units each."""
+    plans = []
+    for rows, cols in kernels.MDCT_TILES:
+        units = kernels.mdct_units(M, n, rows, cols)[1]
+        plans += [kernels.MdctPlan(rows, cols, grid)
+                  for grid in sorted({min(units, card_sms()), 1, min(units, 7)},
+                                     reverse=True)]
+    return plans
+
+
+def check_mdct_plans(tables, win) -> None:
+    """mdct_rows with every plan (`every_mdct_plan`) on the same rows: the
+    default plan's bits, each of them."""
+    M, n = win.shape[0], tables.n
+    args = (win, tables.cos_table, tables.norm)
+    want = mdct_rows(*args)
+    plans = every_mdct_plan(M, n)
+    for plan in plans:
+        got = mdct_rows(*args, plan=plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"mdct_rows plan {tuple(plan)} differs from "
+                                 f"the default plan in {bad} of {got.numel()} "
+                                 f"elements at M={M}")
+    print(f"[encode kernels] mdct_rows at M={M}: every plan the chooser can "
+          f"return here and each tile shape at 1 and 7 blocks "
+          f"({len(plans)} plans: {[tuple(p) for p in plans]}) == the default "
+          f"plan {tuple(kernels.mdct_rows_plan(M, n, card_sms()))} bit for bit")
+
+
 def band_bound(M: int, n: int, bands: int) -> tuple[float, str]:
     """band_energy on M rows: 2·M·n f32 operations (a square and an add a
     bin) at the CUDA cores' f32 peak against coeffs, the band mask and the
@@ -525,18 +610,17 @@ def check_band_energy_non_finite(tables) -> None:
 def phase_encode_kernels(tables, designs: dict, rows):
     """mdct_rows and band_energy against their plain versions at each row
     count, their row invariance, and the times of the kernel, the plain
-    version and one library call beside the bound; band_energy also back
-    to back, and on rows with non-finite squares.  Returns {kernel: {M:
-    (max|kernel-plain|, ms, plain ms, library ms, bound ms, bound by[,
-    device ms, device plain ms, device library ms])}}."""
+    version and one library call beside the bound, single calls and back
+    to back; mdct_rows also with every plan on the same 8192 rows and its
+    plan at each row count, band_energy on rows with non-finite squares.
+    Returns {kernel: {M: (max|kernel-plain|, ms, plain ms, library ms,
+    bound ms, bound by, device ms, device plain ms, device library ms)}}."""
     n = tables.n
     bands = tables.band_mask.shape[0]
     check_band_energy_non_finite(tables)
-    rng = np.random.default_rng(2)
     M_max = max(rows)
-    win_all = torch.from_numpy(
-        (rng.standard_normal((M_max, 2 * n)) * 0.1).astype(np.float32)
-    ).cuda() * tables.window
+    win_all = seeded_rows(M_max, 2 * n, 2, tables.window)
+    check_mdct_plans(tables, win_all[-PLAN_CHECK_ROWS:].contiguous())
     coeffs_all = mdct_rows(win_all, tables.cos_table, tables.norm)
     sums_all = band_energy(coeffs_all, tables.band_mask)
     table64 = tables.cos_table.double()
@@ -573,14 +657,19 @@ def phase_encode_kernels(tables, designs: dict, rows):
                 raise AssertionError(
                     f"{name} M={M}: error vs float64 {errs[0]:.3e} exceeds "
                     f"twice the plain version's {errs[1]:.3e}")
-            device = []
             if name == "mdct_rows":
                 args = (win, tables.cos_table, tables.norm)
-                times = [_median_ms(lambda: mdct_rows(*args)),
-                         _median_ms(lambda: mdct_rows_reference(*args)),
-                         _median_ms(lambda: torch.matmul(win, table_norm))]
+                fns = (lambda: mdct_rows(*args),
+                       lambda: mdct_rows_reference(*args),
+                       lambda: torch.matmul(win, table_norm))
+                times = [_median_ms(fn) for fn in fns]
+                device = [_device_ms(fn) for fn in fns]
                 bound = mdct_bound(M, n)
                 lib_name = "torch.matmul, norm folded into the table"
+                extra = (f"; plan {tuple(kernels.mdct_rows_plan(M, n, card_sms()))}"
+                         f", 3xTF32 floor {mdct_floor(M, n):.4f} ms (the "
+                         f"kernel back to back at "
+                         f"{mdct_floor(M, n) / device[0]:.1%} of it)")
             else:
                 args = (coeffs, tables.band_mask)
                 times = [_median_ms(lambda: band_energy(*args)),
@@ -595,6 +684,7 @@ def phase_encode_kernels(tables, designs: dict, rows):
                           _device_ms(lambda: torch.einsum(
                               "mk,mk,bk->mb", coeffs, coeffs,
                               tables.band_mask))]
+                extra = ""
             print(f"[encode kernels] {name} ({designs[name]}) M={M}: "
                   f"max|kernel-plain| {diff:.3e} ({tol}); vs float64: kernel "
                   f"{errs[0]:.3e}, plain {errs[1]:.3e}, library "
@@ -603,12 +693,10 @@ def phase_encode_kernels(tables, designs: dict, rows):
                   f"({bound[0] / times[0]:.1%} of the bound), plain "
                   f"{times[1]:.4f} ms, library ({lib_name}) {times[2]:.4f} "
                   f"ms; bound {bound[0]:.4f} ms ({bound[1]})")
-            if device:
-                print(f"[encode kernels] band_energy M={M} back to back "
-                      f"(device time a call, 20 queued, median of 5): kernel "
-                      f"{device[0]:.4f} ms ({bound[0] / device[0]:.1%} of the "
-                      f"bound), plain {device[1]:.4f} ms, library "
-                      f"{device[2]:.4f} ms")
+            print(f"[encode kernels] {name} M={M} back to back (device time "
+                  f"a call, 20 queued, median of 5): kernel {device[0]:.4f} "
+                  f"ms ({bound[0] / device[0]:.1%} of the bound), plain "
+                  f"{device[1]:.4f} ms, library {device[2]:.4f} ms{extra}")
             result[name][M] = (diff, *times, *bound, *device)
     return result
 
@@ -830,6 +918,140 @@ def encode_kernels_ab(smi: str, pairs: int = 21) -> None:
           f"{np.percentile(walls['plain'], 25) * 1e3:.2f}-"
           f"{np.percentile(walls['plain'], 75) * 1e3:.2f}); the kernels "
           f"faster in {won} of {pairs} pairs")
+
+
+def seeded_rows(M: int, n: int, seed: int, window=None) -> torch.Tensor:
+    """[M, n] f32 on the card from numpy.random.default_rng(seed), * 0.1,
+    times `window` if given: phase_encode_kernels's windowed blocks (seed 2)
+    and phase_kernel's coefficients (seed 1)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((M, n)) * 0.1)
+                         .astype(np.float32)).cuda()
+    return x if window is None else x * window
+
+
+def mdct_plans(smi: str) -> None:
+    """Device time (`_device_ms`) of every mdct_rows tile shape, at the grid
+    the chooser would give it, at each row count of the encode paths and
+    the tile edges, beside the chooser's pick and one torch.matmul: the
+    measurement behind kernels.mdct_rows_plan's model."""
+    tables = get_codec_tables(1024, 2048, SAMPLE_RATE, "cuda")
+    n = tables.n
+    rows = sorted(set(encode_rows(make_signal())) | set(KERNEL_EDGES),
+                  reverse=True)
+    win_all = seeded_rows(max(rows), 2 * n, 2, tables.window)
+    check_mdct_plans(tables, win_all[-PLAN_CHECK_ROWS:].contiguous())
+    table_norm = (tables.cos_table * tables.norm).T.contiguous()
+    for M in rows:
+        win = win_all[-M:].contiguous()
+        args = (win, tables.cos_table, tables.norm)
+        times = {}
+        for rows_, cols in kernels.MDCT_TILES:
+            units = kernels.mdct_units(M, n, rows_, cols)[1]
+            plan = kernels.MdctPlan(rows_, cols, min(units, card_sms()))
+            times[(rows_, cols)] = _device_ms(
+                lambda: mdct_rows(*args, plan=plan))
+        lib = _device_ms(lambda: torch.matmul(win, table_norm))
+        best = min(times, key=times.get)
+        pick = tuple(kernels.mdct_rows_plan(M, n, card_sms()))
+        print(f"[mdct plans] M={M} ({smi}), back to back: "
+              + ", ".join(f"{r}x{c} {t:.4f}" for (r, c), t in times.items())
+              + f" ms; fastest {best[0]}x{best[1]}, chooser {pick} "
+              f"{times[pick[:2]]:.4f} ms ({times[pick[:2]] / times[best]:.3f}x "
+              f"the fastest); torch.matmul {lib:.4f} ms; 3xTF32 floor "
+              f"{mdct_floor(M, n):.4f} ms")
+    # the SM clock and power while the largest launch runs for ~2 s
+    win = win_all.contiguous()
+    plan = kernels.mdct_rows_plan(len(win), n, card_sms())
+    smi_log = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader", "-lms", "200"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 2.0:
+            for _ in range(50):
+                mdct_rows(win, tables.cos_table, tables.norm, plan=plan)
+            torch.cuda.synchronize()
+    finally:
+        smi_log.terminate()
+        samples = smi_log.communicate(timeout=60)[0].split("\n")
+    print(f"[mdct plans] clocks.sm, clocks.max.sm, power.draw while "
+          f"mdct_rows {tuple(plan)} runs on {len(win)} rows back to back: "
+          f"{[s for s in samples if s]}")
+
+
+# One process of the kernel A/B: the checkout in argv[1] first on the path;
+# the rows and the timing copied in from this script.
+_KERNEL_AB_CHILD = """
+import hashlib, json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import glc_tpu_torch
+from glc_tpu_torch.codec.tables import get_codec_tables
+from glc_tpu_torch.ops.kernels import imdct_window, mdct_rows
+assert glc_tpu_torch.__file__.startswith(sys.argv[1]), glc_tpu_torch.__file__
+{seeded_rows}
+{device_ms}
+tables = get_codec_tables(1024, 2048, {rate}, "cuda")
+n = tables.n
+out = {{"mdct_rows": {{}}, "imdct_window": {{}}}}
+enc, dec = {enc_rows}, {dec_rows}
+win_all = seeded_rows(max(enc), 2 * n, 2, tables.window)
+for M in enc:
+    win = win_all[-M:].contiguous()
+    args = (win, tables.cos_table, tables.norm)
+    y = mdct_rows(*args).cpu().numpy()
+    out["mdct_rows"][M] = (hashlib.sha256(y.tobytes()).hexdigest(),
+                           _device_ms(lambda: mdct_rows(*args)))
+for B in dec:
+    args = (seeded_rows(B, n, 1), tables.cos_table, tables.window,
+            tables.norm_value)
+    y = imdct_window(*args).cpu().numpy()
+    out["imdct_window"][B] = (hashlib.sha256(y.tobytes()).hexdigest(),
+                              _device_ms(lambda: imdct_window(*args)))
+print(json.dumps(out))
+"""
+
+
+def kernel_ab(other: Path, smi: str) -> None:
+    """mdct_rows at every row count of the encode paths and imdct_window at
+    every row count of the decode paths (and the tile edges), on the same
+    seeded rows, in this checkout and in `other` (the parent commit's, say),
+    each in its own process, in the order other, this, this, other: the
+    outputs' SHA-256 must agree in all four (bit for bit), and each
+    process's back-to-back device times are printed."""
+    pcm = make_signal()
+    enc = sorted(set(encode_rows(pcm)) | set(KERNEL_EDGES), reverse=True)
+    dec = sorted(set(path_rows(pcm)) | set(KERNEL_EDGES), reverse=True)
+    child = _KERNEL_AB_CHILD.format(
+        seeded_rows=inspect.getsource(seeded_rows),
+        device_ms=inspect.getsource(_device_ms), rate=SAMPLE_RATE,
+        enc_rows=enc, dec_rows=dec)
+    here = Path(__file__).resolve().parent
+    runs = []
+    for root in (other, here, here, other):
+        proc = subprocess.run([sys.executable, "-c", child, str(root)],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"kernel A/B in {root}:\n{proc.stderr}")
+        runs.append((root, json.loads(proc.stdout.splitlines()[-1])))
+    for kernel, counts in (("mdct_rows", enc), ("imdct_window", dec)):
+        differ = [M for M in counts
+                  if len({r[kernel][str(M)][0] for _root, r in runs}) != 1]
+        for M in counts:
+            print(f"[kernel A/B] {kernel} rows={M} ({smi}), back to back ms "
+                  + ", ".join(f"{'this' if root == here else 'other'} "
+                              f"{r[kernel][str(M)][1]:.4f}"
+                              for root, r in runs)
+                  + f"; bits {'differ' if M in differ else 'equal'}")
+        if differ:
+            raise AssertionError(f"{kernel}: this checkout's bits differ from "
+                                 f"{other}'s at rows {differ}")
+        print(f"[kernel A/B] {kernel}: this checkout and {other} give the same "
+              f"bits at all {len(counts)} row counts, in 4 processes")
 
 
 def phase_cpu(pcm: np.ndarray, encoded_cuda, out_cuda):
@@ -1939,9 +2161,17 @@ def main(argv: list[str]) -> int:
     if argv == ["--encode-kernels-ab"]:
         encode_kernels_ab(smi)
         return 0
+    if argv[:1] == ["--kernel-ab"] and len(argv) == 2:
+        kernel_ab(Path(argv[1]).resolve(), smi)
+        return 0
+    if argv == ["--mdct-plans"]:
+        phase_build(strict=False)
+        mdct_plans(smi)
+        return 0
     if argv:
         print("usage: python3 chip_smoke.py [--encode-ab OTHER_CHECKOUT | "
-              "--encode-kernels-ab]", file=sys.stderr)
+              "--encode-kernels-ab | --kernel-ab OTHER_CHECKOUT | "
+              "--mdct-plans]", file=sys.stderr)
         return 2
     record_launch_rows()
     phase_warmup()

@@ -1,11 +1,17 @@
-// The 3xTF32 tile product of the port's two f32 matrix kernels on NVIDIA
-// Hopper (sm_90a): imdct_window.cu (the decode's IMDCT + window) and
-// mdct_rows.cu (the encode's MDCT).  One block computes one 128x128 tile of
+// The 3xTF32 pieces of the port's two f32 matrix kernels on NVIDIA Hopper
+// (sm_90a): imdct_window.cu (the decode's IMDCT + window) and mdct_rows.cu
+// (the encode's MDCT).  Both compute
 //
 //     total[r, c] = sum_k a[row0 + r, k] * b[col0 + c, k]
 //
 // for a row-major a [M, K] and a K-major b [N, K], both f32, b given as its
-// tf32 split b_hi + b_lo.  Each kernel adds its own epilogue.
+// tf32 split b_hi + b_lo, each element by the same sequence of roundings
+// (below), and add their own epilogue.  imdct_window calls tile_product,
+// one 128x128 tile a block, as it was first written.  mdct_rows runs its own
+// schedule on the same pieces (a persistent grid, the tile shape chosen by
+// the row count, ping-pong warpgroups on 128 x 128 tiles: mdct_rows.cu):
+// wgmma_tf32 at any width from 8 to 128 columns, split_tf32, the Fast2Sum
+// carry, store_fragment.
 //
 // Why 3xTF32, and how it keeps f32 accuracy (what bounds the kernels: the
 // f32 CUDA cores peak at 67 TFLOP/s; only the tensor cores go beyond, and
@@ -124,36 +130,82 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 
 // Keeps the compiler from moving register reads of `d` across the
 // asynchronous wgmma that writes it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += a * b over one k-step of 8: a [64, 8] tf32 from registers, b [8, 128]
-// tf32 from shared memory.  scale-d is always on: d never starts from zero
-// (it carries the last k-tile's rounding error).
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+// d += a * b over one k-step of 8: a [64, 8] tf32 from registers, b [8, N]
+// tf32 from shared memory, N = 2R columns (m64nNk8; N = 128, 64, 32, 16 or
+// 8), d the thread's R accumulators.  scale-d is always on: d never starts
+// from zero (it carries the last k-tile's rounding error).
+template <int R>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[R], const uint32_t (&a)[4],
                                            uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  static_assert(R == 64 || R == 32 || R == 16 || R == 8 || R == 4,
+                "a wgmma width of 128, 64, 32, 16 or 8 columns");
+  if constexpr (R == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else if constexpr (R == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else if constexpr (R == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else if constexpr (R == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
 }
 
 // x ~= hi + lo, each a tf32 value (low 13 bits zero) rounded to nearest with
@@ -295,19 +347,21 @@ __device__ __forceinline__ bool tile_product(const CUtensorMap* a_map,
   return true;
 }
 
-// Stores the fragment `v` (64 values, already through the epilogue) into
-// the row-major out [M, ld] at tile (row0, col0), rows past M dropped.
-// Lanes q and q ^ 1 swap halves: the even lane stores four adjacent columns
-// of row r, the odd lane the same columns of row r + 8; each thread stores
-// 16 bytes of one row.
-__device__ __forceinline__ void store_tile(const float (&v)[64], float* out,
-                                           int M, int ld, int row0, int col0) {
+// Stores a thread's accumulator fragment `v` of an m64nNk8 tile (R = N / 2
+// values, already through the epilogue) into the row-major out [M, ld]:
+// rows r and r + 8, columns col0 + 8j + 2q + {0, 1} (the layout above),
+// rows past M dropped.  Lanes q and q ^ 1 swap halves: the even lane
+// stores four adjacent columns of row r, the odd lane the same columns of
+// row r + 8; each thread stores 16 bytes of one row.
+template <int R>
+__device__ __forceinline__ void store_fragment(const float (&v)[R], float* out,
+                                               int M, int ld, int r, int col0) {
   const int q = threadIdx.x % 4;
   const bool odd = q & 1;
-  const int row = row0 + fragment_row() + (odd ? 8 : 0);
+  const int row = r + (odd ? 8 : 0);
   float* dst = out + static_cast<size_t>(row) * ld + col0 + 4 * (q / 2);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     const float v0 = v[4 * j + 0], v1 = v[4 * j + 1];
     const float v2 = v[4 * j + 2], v3 = v[4 * j + 3];
     const float t0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
@@ -317,6 +371,23 @@ __device__ __forceinline__ void store_tile(const float (&v)[64], float* out,
           odd ? make_float4(t0, t1, v2, v3) : make_float4(v0, v1, t0, t1);
     }
   }
+}
+
+// Stores tile_product's `total` (through the epilogue) at tile (row0, col0).
+__device__ __forceinline__ void store_tile(const float (&v)[64], float* out,
+                                           int M, int ld, int row0, int col0) {
+  store_fragment(v, out, M, ld, row0 + fragment_row(), col0);
+}
+
+// Named barriers (ids 1-15; 0 is __syncthreads) over `threads` threads:
+// bar_sync waits until they have all arrived, bar_arrive arrives without
+// waiting.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
@@ -363,17 +434,18 @@ inline bool make_map(CUtensorMap* map, const float* base, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Raises the kernel's dynamic shared-memory limit to SMEM_BYTES, once per
+// Raises the kernel's dynamic shared-memory limit to `bytes`, once per
 // device and kernel (`raised` is the kernel's own flag array).
 template <typename Kernel>
-inline cudaError_t raise_smem_once(Kernel kernel, bool (&raised)[64]) {
+inline cudaError_t raise_smem_once(Kernel kernel, bool (&raised)[64],
+                                   int bytes = SMEM_BYTES) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= 64) return cudaErrorInvalidDevice;
   if (!raised[device]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
+                               bytes);
     if (err != cudaSuccess) return err;
     raised[device] = true;
   }

@@ -18,9 +18,12 @@ build.
 The two products are 3xTF32 `wgmma` fed by TMA (``csrc/tf32x3.cuh``); they
 read their table as its TF32 split (`split_tf32`), made once per table
 tensor and cached: `table_split` the transposed table's for `imdct_window`,
-`cos_split` the table's own for `mdct_rows`.  `band_energy` reads its work
-plan, `band_plan` (each band's bins cut into items of `BAND_CHUNK` bins, the
-items given to a warp's lanes), made once per band-mask tensor.
+`cos_split` the table's own for `mdct_rows`.  `mdct_rows` launches the
+tile plan `mdct_rows_plan` picks for its row count (`MdctPlan`: a tile
+shape of `MDCT_TILES` and a persistent grid); every plan gives the same
+bits.  `band_energy` reads its work plan, `band_plan` (each band's bins cut
+into items of `BAND_CHUNK` bins, the items given to a warp's lanes), made
+once per band-mask tensor.
 
 Every ``.cu`` file under ``csrc/`` is compiled with nvcc on first use, one
 nvcc a source, all at once, and linked into one shared library with plain C
@@ -152,8 +155,11 @@ def load_library() -> ctypes.CDLL:
         ]
         lib.glc_mdct_rows.argtypes = [
             ptr, ptr, ptr, ptr, ptr,  # win, table_hi, table_lo, norm, out
-            i32, i32, ptr,            # M, n, stream
+            i32, i32,                 # M, n
+            i32, i32, i32, ptr,       # the plan's rows, cols, grid; stream
         ]
+        lib.glc_mdct_rows_plan_info.restype = i32
+        lib.glc_mdct_rows_plan_info.argtypes = [i32, i32, c.POINTER(i32)]
         lib.glc_band_energy.argtypes = [
             ptr, ptr, ptr,          # coeffs, plan, out
             i32, i32, i32,          # M, n, bands
@@ -171,20 +177,26 @@ def load_library() -> ctypes.CDLL:
 def kernel_info() -> Dict[str, Dict[str, int]]:
     """What the build made of each kernel (needs a CUDA device): registers
     and local (spill) bytes a thread, static and dynamic shared memory a
-    block, pipeline stages."""
+    block, pipeline stages; for `mdct_rows` the default plan's, and each
+    tile shape's under ``"mdct_rows(rows, cols)"``."""
     lib = load_library()
-    out = {}
-    for name in KERNELS:
-        info = (ctypes.c_int * 5)()
-        rc = getattr(lib, f"glc_{name}_info")(info)
-        if rc != 0:
-            raise RuntimeError(f"{name} info failed: CUDA error {rc}")
-        out[name] = {
-            "registers": info[0], "local_bytes": info[1],
-            "static_smem": info[2], "dynamic_smem": info[3],
-            "stages": info[4],
-        }
+    out = {name: _info(getattr(lib, f"glc_{name}_info"), name)
+           for name in KERNELS}
+    for rows, cols in MDCT_TILES:
+        out[f"mdct_rows{(rows, cols)}"] = _info(
+            lambda info: lib.glc_mdct_rows_plan_info(rows, cols, info),
+            f"mdct_rows plan {(rows, cols)}")
     return out
+
+
+def _info(fn, name: str) -> Dict[str, int]:
+    info = (ctypes.c_int * 5)()
+    rc = fn(info)
+    if rc != 0:
+        raise RuntimeError(f"{name} info failed: CUDA error {rc}")
+    return {"registers": info[0], "local_bytes": info[1],
+            "static_smem": info[2], "dynamic_smem": info[3],
+            "stages": info[4]}
 
 
 def _rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -346,6 +358,126 @@ def band_plan(band_mask: torch.Tensor) -> BandPlan:
 band_plan.plans = 0
 
 
+class MdctPlan(NamedTuple):
+    """How `mdct_rows` cuts its output [M, n] (csrc/mdct_rows.cu).
+
+    A tile is `rows` x `cols`, `cols` the wgmma width.  rows 128: a block
+    takes one tile, its two consumer warpgroups the tile's two 64-row
+    halves (they share the table's tiles); rows 64: a block takes two tiles
+    side by side, a warpgroup each (they share the rows of win).  A block's
+    tiles are a unit; `grid` blocks (at most one an SM) walk the units,
+    block b taking units b, b + grid, ..., columns fastest.  Every plan
+    gives each element the same bits."""
+
+    rows: int
+    cols: int
+    grid: int
+
+
+# The tile shapes the kernel is built for, (rows, cols), and the device time
+# (µs) of one unit of each, its 64 k-tiles (n = 1024) with one block an SM,
+# back to back: `python3 chip_smoke.py --mdct-plans` on an NVIDIA H100 80GB
+# HBM3 at 700 W.  A unit takes about that long at any row count: its
+# k-loop is one chain (each k-tile's sum carries into the next), which no
+# other SM shortens.
+MDCT_UNIT_US = {(128, 128): 84.0, (64, 64): 58.0, (64, 32): 46.0,
+                (64, 16): 42.0, (64, 8): 40.0}
+MDCT_TILES = tuple(MDCT_UNIT_US)
+MDCT_K_TILE = 32          # the k-tile of csrc/mdct_rows.cu
+
+
+def mdct_unit(rows: int, cols: int) -> Tuple[int, int]:
+    """The (rows, cols) of a unit of the tile shape: one tile of 128 rows,
+    or two of 64 side by side."""
+    return (rows, cols) if rows == 128 else (rows, 2 * cols)
+
+
+def mdct_units(M: int, n: int, rows: int, cols: int) -> Tuple[int, int]:
+    """(units across n, units in all) of the tile shape on [M, n]."""
+    unit_rows, unit_cols = mdct_unit(rows, cols)
+    units_n = n // unit_cols
+    return units_n, -(-M // unit_rows) * units_n
+
+
+def mdct_stage_bytes(rows: int, cols: int) -> int:
+    """A ring stage's bytes: the unit's [rows, 32] of win, its [cols, 32] of
+    table_hi and of table_lo."""
+    unit_rows, unit_cols = mdct_unit(rows, cols)
+    return 4 * MDCT_K_TILE * (unit_rows + 2 * unit_cols)
+
+
+def mdct_smem_bytes(rows: int, cols: int) -> int:
+    """The dynamic shared memory a block of the tile shape asks for: four
+    stages and 1024 bytes of slack."""
+    return 4 * mdct_stage_bytes(rows, cols) + 1024
+
+
+def mdct_plan_us(M: int, n: int, rows: int, cols: int, sms: int) -> float:
+    """The model's time (µs) for the tile shape on [M, n] with `sms` SMs:
+    its rounds of units (`grid` = min(units, sms) blocks) times the unit's
+    time, scaled by the k-loop's depth."""
+    units = mdct_units(M, n, rows, cols)[1]
+    rounds = -(-units // min(units, sms))
+    return rounds * MDCT_UNIT_US[rows, cols] * n / 1024
+
+
+def mdct_rows_plan(M: int, n: int, sms: int) -> MdctPlan:
+    """The plan `mdct_rows` launches on M rows of width 2n on a card of
+    `sms` SMs: the tile shape that the model (`mdct_plan_us`) finds
+    fastest, the earlier one in MDCT_TILES on a tie, and a grid of
+    min(units, sms) blocks."""
+    if M < 1 or n < 1 or n % 128 or sms < 1:
+        raise ValueError(f"no plan for M={M}, n={n}, sms={sms}")
+    rows, cols = min(MDCT_TILES, key=lambda t: mdct_plan_us(M, n, *t, sms))
+    return MdctPlan(rows, cols, min(mdct_units(M, n, rows, cols)[1], sms))
+
+
+def check_mdct_plan(plan: MdctPlan, M: int, n: int) -> None:
+    """Raises ValueError unless `plan` is a built tile shape with a grid of
+    1 to its unit count on [M, n]."""
+    rows, cols, grid = plan
+    if (rows, cols) not in MDCT_TILES:
+        raise ValueError(f"mdct_rows has no tile shape {(rows, cols)}; "
+                         f"built: {MDCT_TILES}")
+    units = mdct_units(M, n, rows, cols)[1]
+    if not 1 <= grid <= units:
+        raise ValueError(f"grid {grid} outside [1, {units}] for {plan} on "
+                         f"M={M}")
+
+
+def mdct_rows_tiles(M: int, n: int, plan: MdctPlan) -> np.ndarray:
+    """The warpgroup tiles of `plan` on [M, n] as the kernel walks them:
+    int64 [T, 5] rows of (block, warpgroup, row0, col0, rows), each tile
+    64 rows (a 128-row tile's halves) by plan.cols columns from (row0,
+    col0); `rows` of them hold rows below M (0 for a half past M, which
+    the kernel computes on zeros and does not store)."""
+    rows, cols, grid = plan
+    units_n, units = mdct_units(M, n, rows, cols)
+    unit_rows, unit_cols = mdct_unit(rows, cols)
+    u = np.arange(units, dtype=np.int64)
+    block = u % grid
+    row0 = (u // units_n) * unit_rows
+    col0 = (u % units_n) * unit_cols
+    out = []
+    for wg in (0, 1):
+        r0 = row0 + (64 * wg if rows == 128 else 0)
+        c0 = col0 + (0 if rows == 128 else cols * wg)
+        out.append(np.stack([block, np.full_like(u, wg), r0, c0,
+                             np.clip(M - r0, 0, 64)], axis=1))
+    return np.concatenate(out)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
 def imdct_window_reference(coeffs: torch.Tensor, cos_table: torch.Tensor,
                            window: torch.Tensor, norm) -> torch.Tensor:
     """Plain version: ((coeffs @ cos_table) * norm) * window, f32 (the
@@ -429,8 +561,8 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
 imdct_window.launches = 0
 
 
-def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor,
-              norm) -> torch.Tensor:
+def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
+              plan: Optional[MdctPlan] = None) -> torch.Tensor:
     """MDCT coefficients [M, n] f32 of windowed blocks win [M, 2n] f32 (rows
     contiguous) against cos_table [n, 2n] f32.
 
@@ -438,7 +570,8 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor,
     win's device (read by the kernel, with no host copy).  The inputs are
     checked on either device; then a CPU `win` takes
     `mdct_rows_reference`, and a CUDA one launches the kernel on the
-    current stream or raises.  Each row's result is the same bits at any M.
+    current stream, with `plan` (default: `mdct_rows_plan` for the card),
+    or raises.  Each row's result is the same bits at any M and plan.
     """
     M, width = _rows_of("mdct_rows", win)
     n = width // 2
@@ -449,6 +582,8 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor,
                                   or norm.dtype != torch.float32):
         raise ValueError(f"norm must be one float32 on {dev}, got "
                          f"{norm.dtype}{tuple(norm.shape)} on {norm.device}")
+    if plan is not None and M:
+        check_mdct_plan(plan, M, n)
     if dev.type == "cpu":
         return mdct_rows_reference(win, cos_table, norm)
     if n % 128:
@@ -456,16 +591,19 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor,
     out = torch.empty((M, n), dtype=torch.float32, device=dev)
     if M == 0:
         return out
+    if plan is None:
+        plan = mdct_rows_plan(M, n, _sms(dev))
     if not torch.is_tensor(norm):
         norm = torch.full((1,), norm, dtype=torch.float32, device=dev)
     lib = load_library()
     table_hi, table_lo = cos_split(cos_table)
     rc = lib.glc_mdct_rows(
         win.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
-        norm.data_ptr(), out.data_ptr(), M, n, _stream(dev),
+        norm.data_ptr(), out.data_ptr(), M, n, *plan, _stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"mdct_rows launch failed: CUDA error {rc}")
+        raise RuntimeError(f"mdct_rows launch failed with plan {plan}: "
+                           f"CUDA error {rc}")
     mdct_rows.launches += 1
     return out
 

@@ -10,7 +10,9 @@ the plain versions to the JAX package, a numpy model of band_energy's
 arithmetic (`band_energy_model`: 33-bin compensated items folded in
 order) to the plain version, to float64 and to the earlier in-order sum,
 its plan (`band_plan`), its NaN and +Inf bands on rows with non-finite
-squares to the plain version's and the JAX einsum's, the wrappers' input
+squares to the plain version's and the JAX einsum's, mdct_rows' tile
+plans (`mdct_rows_plan`: every row and column covered once, within the
+launch limits, the card filled from 646 rows), the wrappers' input
 checks, and tests/test_chunking.py's encode cases on both packages.
 Bounds, each with its reason:
 - mdct_rows_reference against the JAX mdct: atol = rtol = 2e-5, the bar of
@@ -52,8 +54,8 @@ from glc_tpu_torch import DEFAULT_CONFIG, Encoder, serialize_encoded  # noqa: E4
 from glc_tpu_torch.codec.tables import get_codec_tables  # noqa: E402
 from glc_tpu_torch.ops import kernels  # noqa: E402
 from glc_tpu_torch.ops.kernels import (  # noqa: E402
-    band_energy, band_energy_reference, band_plan, cos_split,
-    mdct_rows, mdct_rows_reference, split_tf32, table_split,
+    MdctPlan, band_energy, band_energy_reference, band_plan, cos_split,
+    mdct_rows, mdct_rows_reference, mdct_unit, split_tf32, table_split,
 )
 from glc_tpu_torch.parity import check_containers  # noqa: E402
 
@@ -461,6 +463,119 @@ def test_band_energy_rejects_bad_inputs(tables):
             band_energy(c, m)
 
 
+def test_mdct_rows_rejects_a_bad_plan(tables):
+    """A plan must be a built tile shape with a grid of 1 to its units; the
+    check runs on either device (on the CPU the plan is otherwise unused)."""
+    win = _win(100, tables)
+    args = (win, tables.cos_table, tables.norm)
+    units = kernels.mdct_units(100, N, 64, 32)[1]
+    for plan in (MdctPlan(128, 64, 1), MdctPlan(64, 96, 1),
+                 MdctPlan(32, 32, 1), MdctPlan(64, 32, 0),
+                 MdctPlan(64, 32, units + 1)):
+        with pytest.raises(ValueError):
+            mdct_rows(*args, plan=plan)
+    plan = MdctPlan(64, 32, units)
+    assert torch.equal(mdct_rows(*args, plan=plan),
+                       mdct_rows_reference(*args))
+
+
+# --- mdct_rows' plans (ops/kernels.py::mdct_rows_plan) ---
+
+SMS = 132  # an H100 SXM's SMs
+PLAN_ROWS = {"1-2048": range(1, 2049), "2049-4096": range(2049, 4097),
+             "4097-6144": range(4097, 6145), "6145-8192": range(6145, 8193),
+             "65536": [65536]}
+
+
+def _check_cover(M: int, plan: MdctPlan) -> None:
+    """The plan's warpgroup tiles cover every row below M and every column
+    exactly once, each from an aligned corner, and every block has a unit."""
+    rows, cols, grid = plan
+    t = kernels.mdct_rows_tiles(M, N, plan)
+    block, _wg, row0, col0, held = t.T
+    assert (row0 % 64 == 0).all() and (col0 % cols == 0).all()
+    assert (col0 + cols <= N).all()
+    corners = row0 * N + col0
+    assert len(np.unique(corners)) == len(t)  # aligned and distinct: disjoint
+    assert (held == np.clip(M - row0, 0, 64)).all()
+    assert int(held.sum()) * cols == M * N  # so every element exactly once
+    assert set(block.tolist()) == set(range(grid))
+
+
+@pytest.mark.parametrize("span", list(PLAN_ROWS))
+def test_mdct_rows_plan_covers_every_row_and_column_once(span):
+    for M in PLAN_ROWS[span]:
+        _check_cover(M, kernels.mdct_rows_plan(M, N, SMS))
+
+
+def test_mdct_rows_tiles_cover_by_painting():
+    """The cover, counted element by element, for every tile shape at the
+    tile edges and at a grid of 1, 7 and the chooser's."""
+    for M in (1, 63, 64, 65, 127, 128, 129, 646, 1000, 1292):
+        for rows, cols in kernels.MDCT_TILES:
+            units = kernels.mdct_units(M, N, rows, cols)[1]
+            for grid in {1, min(7, units), min(SMS, units)}:
+                plan = MdctPlan(rows, cols, grid)
+                _check_cover(M, plan)
+                count = np.zeros((-(-M // 64) * 64 + 64, N), np.int32)
+                for _b, _w, r0, c0, _held in kernels.mdct_rows_tiles(M, N, plan):
+                    count[r0:r0 + 64, c0:c0 + cols] += 1
+                assert (count[:M] == 1).all(), (M, plan)
+
+
+@pytest.mark.parametrize("span", list(PLAN_ROWS))
+def test_mdct_rows_plan_stays_within_the_launch_limits(span):
+    for M in PLAN_ROWS[span]:
+        plan = kernels.mdct_rows_plan(M, N, SMS)
+        assert (plan.rows, plan.cols) in kernels.MDCT_TILES
+        units = kernels.mdct_units(M, N, plan.rows, plan.cols)[1]
+        assert plan.grid == min(units, SMS) and units < 2 ** 31
+        kernels.check_mdct_plan(plan, M, N)
+    for rows, cols in kernels.MDCT_TILES:
+        # dynamic + the ring's barriers within a block's 227 KB
+        assert kernels.mdct_smem_bytes(rows, cols) + 64 <= 232448
+        assert mdct_unit(rows, cols)[1] <= 256  # a TMA box's rows
+        assert N % mdct_unit(rows, cols)[1] == 0
+
+
+@pytest.mark.parametrize("sms", [SMS, 114])
+def test_mdct_rows_plan_fills_the_card_from_646_rows(sms):
+    """At 646 rows and more, at least as many busy warpgroup tiles as the
+    card has SMs (there are always enough: 11 row tiles x 16 at 64
+    columns)."""
+    for M in [*range(646, 8193), 65536]:
+        plan = kernels.mdct_rows_plan(M, N, sms)
+        busy = (kernels.mdct_rows_tiles(M, N, plan)[:, 4] > 0).sum()
+        assert busy >= sms, (M, plan, busy)
+
+
+def test_mdct_rows_plan_refuses_what_no_kernel_takes():
+    for M, n, sms in ((0, N, SMS), (5, 1000, SMS), (5, N, 0)):
+        with pytest.raises(ValueError):
+            kernels.mdct_rows_plan(M, n, sms)
+
+
+def plan_thresholds(sms: int, top: int = 8192) -> list:
+    """Row counts on both sides of every change of the chooser's tile shape
+    from 1 to `top` rows."""
+    out, last = [], None
+    for M in range(1, top + 1):
+        shape = kernels.mdct_rows_plan(M, N, sms)[:2]
+        if last is not None and shape != last:
+            out += [M - 1, M]
+        last = shape
+    return out
+
+
+def test_plan_thresholds_cross_every_tile_shape_change():
+    edges = plan_thresholds(SMS)
+    assert edges and len(edges) % 2 == 0
+    for below, above in zip(edges[::2], edges[1::2]):
+        assert above == below + 1
+        assert (kernels.mdct_rows_plan(below, N, SMS)[:2]
+                != kernels.mdct_rows_plan(above, N, SMS)[:2])
+
+
 def test_cos_split_is_its_own_cache(tables):
     """mdct_rows reads the table's own split, imdct_window the transposed
     one; each is made once per table, and neither is the other's."""
@@ -625,21 +740,43 @@ def test_cuda_band_energy_non_finite_rows(cuda_tables):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", EDGES)
+def test_cuda_mdct_rows_every_plan_gives_the_default_bits(cuda_tables, M):
+    """Each tile shape, at the chooser's grid for it and at one block
+    (which walks every unit), gives the default plan's bits."""
+    tb = cuda_tables
+    args = (_win(M, tb, seed=M + 17).cuda(), tb.cos_table, tb.norm)
+    want = mdct_rows(*args)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows, cols in kernels.MDCT_TILES:
+        units = kernels.mdct_units(M, N, rows, cols)[1]
+        for grid in {1, min(units, sms)}:
+            got = mdct_rows(*args, plan=MdctPlan(rows, cols, grid))
+            assert torch.equal(got, want), (rows, cols, grid)
+
+
+@pytest.mark.cuda
 def test_cuda_kernels_are_row_invariant(cuda_tables):
     """Rows taken from an 8192-row launch equal the same rows launched at
-    1, 127 and 1292 rows, bit for bit, at any offset; band_energy's rows
-    also those of a 65536-row launch."""
+    1, 127 and 1292 rows and on both sides of every tile-shape change of
+    the chooser, bit for bit, at any offset; band_energy's rows also those
+    of a 65536-row launch."""
     tb = cuda_tables
     win = _win(8192, tb, seed=3).cuda()
     coeffs = mdct_rows(win, tb.cos_table, tb.norm)
     sums = band_energy(coeffs, tb.band_mask)
-    for M in (1, 127, 1292):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M in sorted({1, 127, 1292, *plan_thresholds(sms)}):
         for start in (0, 8192 - M, 4001 % (8192 - M + 1)):
             rows = slice(start, start + M)
             c = mdct_rows(win[rows].contiguous(), tb.cos_table, tb.norm)
-            assert torch.equal(c, coeffs[rows])
+            assert torch.equal(c, coeffs[rows]), M
             s = band_energy(coeffs[rows].contiguous(), tb.band_mask)
             assert torch.equal(s, sums[rows])
+    big_win = torch.cat([_win(20000, tb, seed=8), win.cpu(),
+                         _win(65536 - 28192, tb, seed=9)]).cuda()
+    assert torch.equal(mdct_rows(big_win, tb.cos_table, tb.norm)[20000:28192],
+                       coeffs)
     big = torch.cat([_coeffs(20000, seed=4).cuda(), coeffs,
                      _coeffs(65536 - 28192, seed=6).cuda()])
     sums_big = band_energy(big, tb.band_mask)
