@@ -103,7 +103,20 @@ Phases, each printing its own line(s):
    equal encode_flac_i16_with_level of the playlist and decode back to it;
    and the CLI encoding the four 15 s WAVs in one main([...]) call, through
    one encode_many, into the per-file containers;
-16. sharded — glc_tpu_torch.parallel on the one card, in three worlds of
+16. api — the JAX package's public API on the port: glc_tpu_torch.ops's
+   encode_chunk_device on the 180 s signal's first segment (4096 frames,
+   8192 rows; one mdct_rows and one band_energy launch) equal bit for bit
+   to the Encoder's segment in the main path's container, and within the
+   pair contract of the CPU port's chunk program; decode_chunk_device on
+   the main path's first decode chunk (1408 frames, 2816 rows; one
+   imdct_window launch) equal bit for bit to decode_i16's hops and its
+   int16 output; then the `stats=` hooks of the 180 s encode_pcm16,
+   decode_i16 and FLAC export and of the 4 x 120 s decode_many: output
+   equal to the unhooked call's, the JAX package's keys, the transfer
+   counts and launches tests/test_torch_api.py pins, and each call's wall
+   unhooked and hooked with the hook's median pack_ms / disp_ms / wait_ms
+   (medians of 11 alternating pairs);
+17. sharded — glc_tpu_torch.parallel on the one card, in three worlds of
    spawned ranks, each rank on cuda:0: gloo 2 ranks (mesh 1 x 2), gloo 4
    ranks (2 x 2; the halo and the gathers through host memory) and NCCL 1
    rank (1 x 1; the gathers on the card).  After a warm-up, each world
@@ -119,7 +132,7 @@ Phases, each printing its own line(s):
    printed beside the
    serial loops'.  A rank that fails, or a world not done in 300 s, fails
    the run;
-17. playback — playback.play_files_gapless of the 120 s album's .glc files
+18. playback — playback.play_files_gapless of the 120 s album's .glc files
    into a capture sink: one sink, the stream equal to the tracks'
    decode_streaming chunks bit for bit, each track's trimmed part within
    1e-6 of decode and 1 LSB of decode_i16, one launch a chunk; the time to
@@ -129,10 +142,10 @@ Phases, each printing its own line(s):
    written, no producer thread left, torch.cuda.synchronize() passes); and
    cli.main(["-p", ...]) and (["-p", "--ffplay", ...]) against a stub
    ffplay written into a temporary directory, whose bytes are the stream;
-18. controller — CodecController on two 15 s WAVs: encode_selected equals
+19. controller — CodecController on two 15 s WAVs: encode_selected equals
    encode_pcm16 byte for byte, play_gapless feeds the decode_streaming
    stream, export_playlist equals album.export_playlist_to_flac;
-19. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
+20. profile — GLC_PROFILE around two decode_i16 calls of the 180 s
    container: each torch.profiler trace holds the decode_i16 span and one
    imdct_window kernel event a chunk; the traced and untraced walls; and
    one play_files_gapless of the 480 s album under profiling.trace: the
@@ -204,13 +217,15 @@ from glc_tpu_torch import (
     serialize_encoded,
 )
 from glc_tpu_torch import album, cli, native, parallel, playback, profiling
-from glc_tpu_torch.codec.decoder import PRODUCER_NAME, gapless_trim_bounds
+from glc_tpu_torch.codec.decoder import (
+    PRODUCER_NAME, chunk_pairs, gapless_trim_bounds,
+)
 from glc_tpu_torch.codec.encoder import upload_geometry
 from glc_tpu_torch.codec.tables import (
-    chunk_size_for, get_codec_tables, pow2_bucket,
+    chunk_size_for, get_codec_tables, get_device_tables, pow2_bucket,
 )
 from glc_tpu_torch.config import DEFAULT_CONFIG
-from glc_tpu_torch.container.schema import ProgressKind
+from glc_tpu_torch.container.schema import EncodedAudio, ProgressKind
 from glc_tpu_torch.controller import CodecController
 from glc_tpu_torch.flac import bitpack
 from glc_tpu_torch.flac.decoder import decode_flac
@@ -220,6 +235,9 @@ from glc_tpu_torch.flac.encoder import (
 from glc_tpu_torch.flac.ops import flac_block_stats, flac_block_stats_host
 from glc_tpu_torch.io.wav import convert_f32_to_i16, write_wav_i16
 from glc_tpu_torch.ops import decode as decode_ops
+from glc_tpu_torch.ops import decode_chunk_device, encode_chunk_device
+from glc_tpu_torch.ops.decode import to_i16
+from glc_tpu_torch.ops.encode import frames_from_signal, planarize
 from glc_tpu_torch.ops import mdct as mdct_ops
 from glc_tpu_torch.ops import psycho as psycho_ops
 from glc_tpu_torch.ops import kernels
@@ -228,12 +246,18 @@ from glc_tpu_torch.ops.kernels import (
     mdct_rows, mdct_rows_reference,
 )
 from glc_tpu_torch.parallel.mesh import mesh_shape
-from glc_tpu_torch.parity import check_containers
+from glc_tpu_torch.parity import (
+    MAX_FLIP_RATE, check_containers, dense_pair_flips,
+)
 
 # the launch geometry of decode_many, kept beside the tests that hold the
 # decoder to it
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from test_torch_album import launch_rows  # noqa: E402
+# the stats hooks' keys and counts, as the tests pin them
+from test_torch_api import (  # noqa: E402
+    DECODE_KEYS, ENCODE_KEYS, UPLOADS_PER_CHUNK, chunks_of, encode_down_n,
+)
 
 SAMPLE_RATE = 44100
 SECONDS = 180
@@ -1167,15 +1191,17 @@ def phase_native():
           f"{'loaded' if cached else 'built'} in {secs:.2f} s")
 
 
-def export_flac(dec: Decoder, encoded, parts=None) -> bytes:
+def export_flac(dec: Decoder, encoded, parts=None, stats=None) -> bytes:
     """The CLI's default decode (glc_tpu_torch/cli.py decode_file): the int16
     stream at stream_chunk_frames into the streaming FLAC encoder.  With
-    `parts`, the stream's chunks are kept there too."""
+    `parts`, the stream's chunks are kept there too; `stats` goes to the
+    stream's hook."""
     n_total = dec.decoded_length(encoded)
 
     def stream():
         for part in dec.decode_i16_stream(
-                encoded, chunk_frames=dec.config.stream_chunk_frames):
+                encoded, chunk_frames=dec.config.stream_chunk_frames,
+                stats=stats):
             if parts is not None:
                 parts.append(part)
             yield part
@@ -1225,7 +1251,7 @@ def phase_export(encoded, out):
           f"({len(data) / (2 * len(out)):.3f} of the PCM); imdct_window "
           f"launches {launches} == {chunks} chunks of {len(parts)}; stream == "
           f"decode_i16, bytes == whole-stream, decode_flac and MD5 agree")
-    return launches
+    return data
 
 
 def phase_cli(pcm: np.ndarray):
@@ -1482,6 +1508,200 @@ def phase_album_cli(items):
                 raise AssertionError(f"CLI {w.name} != encode_pcm16")
     print(f"[album] cli.main on {len(items)} WAVs: exit code 0, one "
           f"encode_many of {calls[0]} tracks, every .glc == encode_pcm16")
+
+
+def hooked_walls(call) -> tuple[float, float, dict]:
+    """WALL_RUNS alternating pairs of ``call(None)`` and ``call(stats)``
+    (a fresh dict each) after a warm-up of each: the median walls (s)
+    unhooked and hooked, and each key's median over the hooked runs."""
+    call(None)
+    call({})
+    plain, hooked, splits = [], [], []
+    for r in range(WALL_RUNS):
+        for with_stats in (True, False)[:: 1 if r % 2 else -1]:
+            st = {} if with_stats else None
+            (hooked if with_stats else plain).append(_wall(lambda: call(st)))
+            if with_stats:
+                splits.append(st)
+    return (float(np.median(plain)), float(np.median(hooked)),
+            {k: float(np.median([st[k] for st in splits])) for k in splits[0]})
+
+
+def check_hooked(name: str, got, want, stats: dict, keys, counts: dict,
+                 launches: dict, want_launches: dict) -> None:
+    """A hooked call against its unhooked output: equal, the JAX package's
+    keys, the counts `counts`, the kernels launched as `want_launches`."""
+    if isinstance(got, EncodedAudio):
+        got = serialize_encoded(got)
+    elif isinstance(got, np.ndarray):
+        got = [got]
+    same = (got == want if isinstance(got, bytes) else
+            all(np.array_equal(a, b) for a, b in zip(got, want, strict=True)))
+    if not same:
+        raise AssertionError(f"{name}: hooked output != unhooked")
+    if set(stats) != set(keys):
+        raise AssertionError(f"{name}: keys {sorted(stats)}")
+    if {k: stats[k] for k in counts} != counts:
+        raise AssertionError(f"{name}: counts {stats}, the geometry says "
+                             f"{counts}")
+    if launches != want_launches:
+        raise AssertionError(f"{name}: launches {launches}, want "
+                             f"{want_launches}")
+
+
+def api_chunk_programs(pcm: np.ndarray, encoded, out) -> str:
+    """encode_chunk_device on the 180 s signal's first segment, and
+    decode_chunk_device on the main path's first decode chunk, on the card:
+    bit for bit the Encoder's and the Decoder's; the encode within the pair
+    contract of the CPU port's.  One launch each of the path's kernels."""
+    cfg = DEFAULT_CONFIG
+    n, frame_size = cfg.n, cfg.frame_size
+    fs = encoded.frame_set
+    _T, F, _pad, plan, need = upload_geometry(len(pcm), 2, cfg)
+    start, k = plan[0]
+    valid = min(k, F - start)
+    x = planarize(torch.from_numpy(pcm).cuda(), 2, cfg.hop_size // 2, n,
+                  need).to(torch.float32) / 32768.0
+    blocks = frames_from_signal(x[:, start * n : (start + valid + 1) * n], n)
+    tabs = get_device_tables(n, frame_size, SAMPLE_RATE, "cuda")
+    reset_launches()
+    enc_out = encode_chunk_device(blocks, *tabs)
+    torch.cuda.synchronize()
+    enc_launches = launch_counts()
+    q, nnz, scale, raw, use_raw = (t.cpu().numpy() for t in enc_out)
+    if enc_launches != {"imdct_window": 0, "mdct_rows": 1, "band_energy": 1}:
+        raise AssertionError(f"encode_chunk_device launched {enc_launches}")
+    # the Encoder's segment as the container holds it: raw frames' q and
+    # nnz zeroed and no scales stored for them, pairs in stream order, raw
+    # rows channel-major (encoder.py)
+    q = np.where(use_raw[:, None, None], 0, q).reshape(-1, n)
+    nnz = np.where(use_raw[:, None], 0, nnz)
+    rows, kk = np.nonzero(q)
+    P = int(fs.nnz[:valid].sum())
+    raw_rows = raw[use_raw].reshape(-1, 2 * frame_size)
+    coded = ~use_raw
+    checks = {
+        "use_raw": np.array_equal(use_raw, fs.raw_mask[:valid]),
+        "scales": np.array_equal(scale[coded].view(np.int32),
+                                 fs.scales[:valid][coded].view(np.int32)),
+        "nnz": np.array_equal(nnz, fs.nnz[:valid]),
+        "pair k": np.array_equal(kk, fs.pairs["k"][:P]),
+        "pair q": np.array_equal(q[rows, kk], fs.pairs["q"][:P]),
+        "raw rows": np.array_equal(raw_rows, fs.raw_pcm[: len(raw_rows)]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"encode_chunk_device != the Encoder's first "
+                             f"segment on the card: {checks}")
+    cpu = encode_chunk_device(blocks.cpu(), *get_device_tables(
+        n, frame_size, SAMPLE_RATE, "cpu"))
+    q_cpu, use_raw_cpu = cpu[0].numpy(), cpu[4].numpy()
+    q_card = enc_out[0].cpu().numpy()
+    flips = dense_pair_flips(q_card, q_cpu)
+    if (not np.array_equal(use_raw_cpu, enc_out[4].cpu().numpy())
+            or flips["max_dq"] > 1 or flips["rate"] > MAX_FLIP_RATE):
+        raise AssertionError(f"encode_chunk_device card vs CPU: {flips}")
+
+    chunk = chunk_size_for(F, cfg.decode_chunk_frames)
+    dvalid = min(chunk, F)
+    pos, vals = chunk_pairs(fs, 0, dvalid, 0, n)
+    qd = np.zeros(dvalid * 2 * n, np.int16)
+    qd[pos] = vals
+    is_raw = fs.raw_mask[:dvalid]
+    ridx = np.flatnonzero(is_raw)
+    stored = fs.raw_pcm[: len(ridx)]
+    raw_dense = np.zeros((dvalid, 2, frame_size), np.int16)
+    raw_dense[ridx] = (stored.reshape(-1, frame_size, 2).transpose(0, 2, 1)
+                       if cfg.reference_compat  # channel-major (Q13)
+                       else stored.reshape(-1, 2, frame_size))
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    reset_launches()
+    hops, _carry = decode_chunk_device(
+        qd.reshape(dvalid, 2, n), fs.scales[:dvalid], raw_dense, is_raw,
+        np.zeros((2, n), np.float32), dvalid, *tabs[:3], max_q=cfg.max_q,
+        window_raw=not cfg.reference_compat)
+    torch.cuda.synchronize()
+    dec_launches = launch_counts()
+    if dec_launches != {"imdct_window": 1, "mdct_rows": 0, "band_energy": 0}:
+        raise AssertionError(f"decode_chunk_device launched {dec_launches}")
+    _valid, want = next(dec._chunks(encoded, chunk))
+    flat = to_i16(hops).transpose(1, 2).reshape(-1).cpu().numpy()
+    skip = gapless_trim_bounds((F + 1) * n * 2, encoded.gapless_info, 2,
+                               cfg.reference_compat)[0]
+    if not torch.equal(hops, want) or not np.array_equal(
+            flat[skip:], out[: len(flat) - skip]):
+        raise AssertionError("decode_chunk_device != decode_i16's first "
+                             "chunk on the card")
+    return (f"encode_chunk_device on segment 0 ({valid} frames, "
+            f"{2 * valid} rows; launches {enc_launches}): "
+            f"{', '.join(checks)} == the Encoder's segment bit for bit, "
+            f"{P} pairs, {int(use_raw.sum())} raw frames; card vs CPU "
+            f"{flips['gate']} keep-gate and {flips['pm1']} +-1 flips of "
+            f"{flips['kept']} (rate {flips['rate']:.5%}); "
+            f"decode_chunk_device on chunk 0 ({dvalid} frames, {2 * dvalid} "
+            f"rows; launches {dec_launches}): hops == decode_i16's bit for "
+            f"bit, int16 == its output")
+
+
+def phase_api(pcm: np.ndarray, encoded, out, flac: bytes, many, outs,
+              smi: str) -> dict:
+    """The JAX package's public API on the port, on the card: the chunk
+    programs (`api_chunk_programs`), then the `stats=` hooks of the 180 s
+    encode_pcm16, decode_i16 and FLAC export and of the 4 x 120 s
+    decode_many: output equal to the unhooked call's, keys and counts as
+    tests/test_torch_api.py pins them, the kernels' launches; and each
+    call's wall beside the hook's split (medians of WALL_RUNS alternating
+    pairs).  Returns {call: (wall unhooked, wall hooked, split)}."""
+    cfg = DEFAULT_CONFIG
+    print(f"[api] {api_chunk_programs(pcm, encoded, out)}")
+    enc = Encoder(SAMPLE_RATE, device="cuda")
+    dec = Decoder(2, SAMPLE_RATE, device="cuda")
+    segments = len(upload_geometry(len(pcm), 2, cfg)[3])
+    chunks = chunks_of(encoded, cfg.decode_chunk_frames)
+    stream_chunks = chunks_of(encoded, cfg.stream_chunk_frames)
+    album_chunks = sum(chunks_of(ea, cfg.decode_chunk_frames) for ea in many)
+    calls = {
+        "encode_pcm16": (
+            lambda st: enc.encode_pcm16(pcm, 2, stats=st),
+            serialize_encoded(encoded), ENCODE_KEYS,
+            {"up_n": 1, "down_n": encode_down_n(encoded, cfg)},
+            {"imdct_window": 0, "mdct_rows": segments,
+             "band_energy": segments}),
+        "decode_i16": (
+            lambda st: dec.decode_i16(encoded, stats=st), [out],
+            DECODE_KEYS,
+            {"up_n": UPLOADS_PER_CHUNK * chunks, "down_n": chunks},
+            {"imdct_window": chunks, "mdct_rows": 0, "band_energy": 0}),
+        "export": (
+            lambda st: export_flac(dec, encoded, stats=st), flac, DECODE_KEYS,
+            {"up_n": UPLOADS_PER_CHUNK * stream_chunks,
+             "down_n": stream_chunks},
+            {"imdct_window": stream_chunks, "mdct_rows": 0,
+             "band_energy": 0}),
+        "decode_many": (
+            lambda st: dec.decode_many(many, stats=st), outs, DECODE_KEYS,
+            {"up_n": UPLOADS_PER_CHUNK * album_chunks,
+             "down_n": album_chunks},
+            {"imdct_window": album_chunks, "mdct_rows": 0,
+             "band_energy": 0}),
+    }
+    result = {}
+    for name, (call, want, keys, counts, want_launches) in calls.items():
+        stats: dict = {}
+        reset_launches()
+        got = call(stats)
+        torch.cuda.synchronize()
+        check_hooked(name, got, want, stats, keys, counts, launch_counts(),
+                     want_launches)
+        t_plain, t_hooked, split = hooked_walls(call)
+        result[name] = (t_plain, t_hooked, split)
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in split.items()
+                           if k.endswith("_ms"))
+        print(f"[api] {name} ({smi}), medians of {WALL_RUNS} alternating "
+              f"pairs: wall {t_plain * 1e3:.2f} ms unhooked, "
+              f"{t_hooked * 1e3:.2f} ms hooked; split {stages} ms; "
+              f"{counts} == the geometry's; output == unhooked; launches "
+              f"{want_launches}")
+    return result
 
 
 class CaptureSink:
@@ -2189,7 +2409,7 @@ def main(argv: list[str]) -> int:
     phase_cpu(pcm, encoded, out)
     phase_invariance(pcm, encoded)
     phase_quality(smi)
-    phase_export(encoded, out)
+    flac = phase_export(encoded, out)
     phase_cli(pcm)
     phase_flac_math(out)
     phase_stream(encoded, out)
@@ -2197,6 +2417,7 @@ def main(argv: list[str]) -> int:
     items, many, outs = phase_album(ALBUM_SECONDS[1], smi)
     phase_album_export(many, outs)
     phase_album_cli(short[0])
+    phase_api(pcm, encoded, out, flac, many, outs, smi)
     sharded = phase_sharded(
         {ALBUM_SECONDS[0]: short[0], ALBUM_SECONDS[1]: items}, smi)
     phase_playback(many, outs, smi)

@@ -13,6 +13,8 @@ mirrors the reference (reference src/codec.rs:571-768):
     rx = dec.decode_streaming(encoded, progress) # queue of AudioChunk (f32)
     samples = dec.decode(encoded)                # trimmed, interleaved f32
     outs = dec.decode_many([ea1, ea2, ...])      # int16 a track, in order
+    pcm16 = dec.decode_i16(encoded, stats=st)    # st: the host time per
+                                                 # stage, transfer counts
 
 The frames are decoded in chunks of ``chunk_size_for(F,
 decode_chunk_frames)``; the overlap carry between chunks stays on the
@@ -50,7 +52,7 @@ from ..config import CodecConfig, DEFAULT_CONFIG
 from ..container.schema import AudioChunk, EncodedAudio, FrameSet, Progress
 from ..ops.decode import decode_stacked, dense_q, to_i16
 from ..profiling import maybe_trace
-from .device import resolve_device, upload_concat
+from .device import NO_STATS, StageClock, resolve_device, upload_concat
 from .tables import chunk_size_for, get_codec_tables
 
 ProgressSender = Callable[[Progress], None]
@@ -62,6 +64,10 @@ _PIPELINE_DEPTH = 8
 
 # The name of `decode_streaming`'s producer threads.
 PRODUCER_NAME = "glc-decode-producer"
+
+# The keys of the `stats=` hook (`Decoder.decode_i16_stream`), the JAX
+# package's.
+STATS_KEYS = ("pack_ms", "disp_ms", "wait_ms", "up_n", "down_n")
 
 
 def gapless_trim_bounds(pre_len: int, gapless_info, channels: int,
@@ -185,16 +191,25 @@ class Decoder:
         )
         return limit
 
-    def _decode_parts(self, parts, carries: torch.Tensor, last: bool):
+    def _decode_parts(self, parts, carries: torch.Tensor, last: bool,
+                      clock: StageClock = NO_STATS):
         """Decode the frames of `parts` stacked back to back in one pass
         (`decode_stacked`, one kernel launch).  Each part is ``(fs, start,
         valid, offsets)``: frames [start, start+valid) of a FrameSet with
         `frame_offsets(fs)`; all parts have one channel count, and `last`
         says they end their tracks.  `carries` [B, C, n] holds each part's
-        overlap carry.  Returns `decode_stacked`'s (rows, new carries)."""
+        overlap carry.  Returns `decode_stacked`'s (rows, new carries).
+        `clock` takes the host work that builds the inputs as ``pack_ms``,
+        the uploads and launches as ``disp_ms``, and counts the uploads."""
         cfg = self.config
         n = cfg.n
         dev = self.device
+
+        def up(arrays):
+            clock.count("up_n")
+            return upload_concat(arrays, dev)
+
+        t0 = clock.tick()
         C = parts[0][0].channels
         frame_size = parts[0][0].frame_size
         pos_l, val_l, scale_l, idx_l, raw_l = [], [], [], [], []
@@ -211,27 +226,30 @@ class Decoder:
             raw_l.append(fs.raw_pcm[r0 : r0 + len(raw_idx)])
             counts.append(valid)
             off += valid
+        t0 = clock.add("pack_ms", t0)
 
-        q = dense_q(upload_concat(pos_l, dev), upload_concat(val_l, dev),
-                    off, C, n)
-        rows = upload_concat(raw_l, dev)
+        q = dense_q(up(pos_l), up(val_l), off, C, n)
+        rows = up(raw_l)
         if cfg.reference_compat:
             # channel-major data read back interleaved (Q13)
             rows = rows.view(-1, frame_size, C).transpose(1, 2)
         else:
             rows = rows.view(-1, C, frame_size)
-        return decode_stacked(
-            q, upload_concat(scale_l, dev), upload_concat(idx_l, dev), rows,
-            carries, counts, last,
+        out = decode_stacked(
+            q, up(scale_l), up(idx_l), rows, carries, counts, last,
             self.tables, max_q=cfg.max_q,
             window_raw=not cfg.reference_compat,  # fix Q4 in clean mode
         )
+        clock.add("disp_ms", t0)
+        return out
 
-    def _chunks(self, encoded: EncodedAudio, chunk: int):
+    def _chunks(self, encoded: EncodedAudio, chunk: int,
+                clock: StageClock = NO_STATS):
         """Run the frames on the device in chunks of `chunk`, in order;
         yields (valid frames, hops [valid, C, n] f32).  The last chunk's
         hops carry one more row: the stream's overlap tail
-        (codec.rs:722-732), so its download brings the tail along."""
+        (codec.rs:722-732), so its download brings the tail along.
+        `clock` goes to `_decode_parts`."""
         fs = encoded.frame_set
         F = fs.num_frames
         offsets = frame_offsets(fs)
@@ -240,13 +258,15 @@ class Decoder:
         for start in range(0, F, chunk):
             valid = min(chunk, F - start)
             hops, carry = self._decode_parts(
-                [(fs, start, valid, offsets)], carry, start + chunk >= F)
+                [(fs, start, valid, offsets)], carry, start + chunk >= F,
+                clock)
             yield valid, hops
 
     # --- int16: the stream and the whole-file decode (export path) ---
 
     def decode_i16_stream(self, encoded: EncodedAudio,
-                          chunk_frames: Optional[int] = None):
+                          chunk_frames: Optional[int] = None,
+                          stats: Optional[dict] = None):
         """Generator of gapless-trimmed int16 interleaved chunks, in stream
         order, with the exporters' conversion trunc(clip(x·32767))
         (audio.rs:9-16) applied on the device.
@@ -258,13 +278,36 @@ class Decoder:
         ``decode_chunk_frames``) for this stream; consumers that do host
         work per chunk (the FLAC export) use ``stream_chunk_frames``.  The
         yielded arrays stay valid after the generator moves on.
+
+        `stats`, if given, accumulates the loop's stage and transfer
+        attribution (the JAX package's keys, each set with setdefault and
+        added to, so one dict can sum several calls):
+
+        * ``pack_ms`` — host ms building a chunk's inputs: `chunk_pairs`,
+          the scale and raw-row slices and their lists (the counterpart of
+          the JAX package's ``_packed_slices``);
+        * ``disp_ms`` — host ms issuing the uploads (the pinned staging
+          included), the launches and the non-blocking download;
+        * ``wait_ms`` — host ms blocked on a chunk's download, and its
+          trim;
+        * ``up_n`` — host→device copies: 5 a chunk, where the JAX package
+          uploads one packed words array a chunk; the port sends the pair
+          positions, the pair values, the raw rows, the scales and the raw
+          frames' indices apart, each a pinned copy that does not block;
+        * ``down_n`` — device→host copies: 1 a chunk (the JAX package's
+          ≤1024-row pieces are not ported).
+
+        The counts are of calls, whatever the device, so a CPU run gives
+        the card's.  The consumer's time between two chunks lands in no
+        key.  Output is identical with or without the hook.
         """
         for _pos, flat in self._pipelined_i16_chunks(
-            [(0, encoded)], chunk_frames=chunk_frames
+            [(0, encoded)], chunk_frames=chunk_frames, stats=stats
         ):
             yield flat
 
-    def _pipelined_i16_chunks(self, recs, chunk_frames: Optional[int] = None):
+    def _pipelined_i16_chunks(self, recs, chunk_frames: Optional[int] = None,
+                              stats: Optional[dict] = None):
         """Core of the int16 decode surfaces: drive the tracks in `recs` (a
         list of ``(pos, EncodedAudio)``) chunk by chunk through the device
         with one `_PIPELINE_DEPTH`-deep window of chunks in flight, yielding
@@ -273,10 +316,12 @@ class Decoder:
         Each chunk's int16 hops are queued to the host as a `_Download`;
         chunk i is handed on only after waiting on chunk i's event, never
         on the whole device, so the host's work on chunk i overlaps the
-        device's on the chunks after it.
+        device's on the chunks after it.  `stats`: see
+        `decode_i16_stream`.
         """
         cfg = self.config
         n = cfg.n
+        clock = StageClock(stats, STATS_KEYS)
 
         # per-track trim state: pos -> [skip_left, emitted, limit]
         trim_state: dict = {}
@@ -295,7 +340,10 @@ class Decoder:
 
         def collect(handle):
             pos, download = handle
-            return pos, trim(pos, download.wait().reshape(-1))
+            t0 = clock.tick()
+            out = trim(pos, download.wait().reshape(-1))
+            clock.add("wait_ms", t0)
+            return pos, out
 
         handles: list = []
         for pos, encoded in recs:
@@ -313,8 +361,11 @@ class Decoder:
                 if len(tail):
                     yield pos, tail
                 continue
-            for _valid, hops in self._chunks(encoded, chunk):
+            for _valid, hops in self._chunks(encoded, chunk, clock):
+                t0 = clock.tick()
                 handles.append((pos, _Download(hops, out_i16=True)))
+                clock.add("disp_ms", t0)
+                clock.count("down_n")
                 if len(handles) > _PIPELINE_DEPTH:
                     pos_o, out = collect(handles.pop(0))
                     if len(out):
@@ -325,19 +376,21 @@ class Decoder:
             if len(out):
                 yield pos_o, out
 
-    def decode_i16(self, encoded: EncodedAudio) -> np.ndarray:
+    def decode_i16(self, encoded: EncodedAudio,
+                   stats: Optional[dict] = None) -> np.ndarray:
         """Decode to trimmed, interleaved int16: the concatenation of
         `decode_i16_stream` at the default chunk size.  Within 1 LSB of
-        ``convert_f32_to_i16(decode(encoded))``."""
+        ``convert_f32_to_i16(decode(encoded))``.  `stats` goes to
+        `decode_i16_stream`'s stage-attribution hook."""
         with maybe_trace("decode_i16"):
-            parts = list(self.decode_i16_stream(encoded))
+            parts = list(self.decode_i16_stream(encoded, stats=stats))
         if not parts:
             return np.empty(0, np.int16)
         return np.concatenate(parts)
 
     # --- int16, several tracks: the album decode ---
 
-    def decode_many(self, encoded_list) -> list:
+    def decode_many(self, encoded_list, stats: Optional[dict] = None) -> list:
         """Decode several tracks to trimmed int16, one array a track in
         input order (glc_tpu/codec/decoder.py:630-751; the reference's GUI
         decodes an album one file after another, src/ui.rs:317-359).  Each
@@ -358,6 +411,11 @@ class Decoder:
         plain product rounds a product of ≤ 128 rows differently from a
         larger one, so a batched track can differ from `decode_i16` by
         1 LSB there.  Each result owns its memory.
+
+        `stats` goes to `_pipelined_i16_chunks`'s stage-attribution hook
+        (see `decode_i16_stream`) for the multi-chunk tracks only, as in
+        the JAX package: the single-chunk groups and the empty tracks are
+        not counted.
         """
         cfg = self.config
         n = cfg.n
@@ -390,7 +448,7 @@ class Decoder:
 
         # the multi-chunk tracks run while the groups' downloads drain
         if multis:
-            self._decode_streaming_pipelined(multis, results)
+            self._decode_streaming_pipelined(multis, results, stats)
 
         for i, ea in empties:
             results[i] = self.decode_i16(ea)
@@ -409,14 +467,15 @@ class Decoder:
                 ).copy()
         return results
 
-    def _decode_streaming_pipelined(self, recs, results) -> None:
+    def _decode_streaming_pipelined(self, recs, results,
+                                    stats: Optional[dict] = None) -> None:
         """Multi-chunk tracks (decoder.py:753-770): the
         tracks of `recs` (``(index, EncodedAudio)``) one after another
         through `_pipelined_i16_chunks`, with one window of chunks in flight
         across track boundaries.  Each track equals its `decode_i16` bit for
         bit (the same chunks)."""
         parts: dict = {i: [] for i, _ea in recs}
-        for i, flat in self._pipelined_i16_chunks(recs):
+        for i, flat in self._pipelined_i16_chunks(recs, stats=stats):
             parts[i].append(flat)
         for i, _ea in recs:
             results[i] = (np.concatenate(parts[i]) if parts[i]

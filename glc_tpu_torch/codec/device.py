@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import os
+import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,3 +57,44 @@ def upload_concat(arrays, device: torch.device) -> torch.Tensor:
                       dtype=dtype, pin_memory=True)
     np.concatenate(arrays, out=buf.numpy())
     return buf.to(device, non_blocking=True)
+
+
+class StageClock:
+    """The `stats=` hook of the encode and decode loops: it adds host
+    milliseconds per stage (keys ending in ``_ms``) and transfer counts
+    (keys ending in ``_n``) into the caller's dict.  Each key is set with
+    ``setdefault`` and then added to, so one dict can sum several calls.
+
+    With ``stats=None`` every method returns at once without reading the
+    clock; with a dict it reads only ``time.perf_counter()`` and adds, so
+    the loop it instruments issues the same work and waits at the same
+    points either way."""
+
+    __slots__ = ("stats",)
+
+    def __init__(self, stats: Optional[dict], keys):
+        self.stats = stats
+        if stats is not None:
+            for key in keys:
+                stats.setdefault(key, 0.0 if key.endswith("_ms") else 0)
+
+    def tick(self) -> float:
+        """The start of a stage."""
+        return time.perf_counter() if self.stats is not None else 0.0
+
+    def add(self, key: str, t0: float) -> float:
+        """Add the milliseconds since `t0` to `key`; return now, the next
+        stage's start."""
+        if self.stats is None:
+            return 0.0
+        t1 = time.perf_counter()
+        self.stats[key] += (t1 - t0) * 1e3
+        return t1
+
+    def count(self, key: str, k: int = 1) -> None:
+        if self.stats is not None:
+            self.stats[key] += k
+
+
+# The clock of a loop called without `stats`: it records nothing.
+NO_STATS = StageClock(None, ())

@@ -8,6 +8,9 @@ Port of ``glc_tpu/codec/encoder.py``.  API mirrors the reference
     encoded = enc.encode_pcm16(i16, channels)   # exact fast path for 16-bit
                                                 # sources (i16/2^15 == f32)
     encodeds = enc.encode_many([(i16, 2), (f32, 1), ...])  # in input order
+    st = {}
+    encoded = enc.encode_pcm16(i16, channels, stats=st)  # st: the host time
+                                # per stage and the transfer counts
 
 The host uploads the interleaved signal once per file, from pinned memory;
 the deinterleave, padding and framing happen on the device.  Each segment
@@ -40,8 +43,12 @@ from ..container.schema import (
 )
 from ..ops.encode import encode_segment, planarize
 from ..profiling import maybe_trace
-from .device import resolve_device, upload
+from .device import StageClock, resolve_device, upload
 from .tables import get_codec_tables, len_bucket
+
+
+# The keys of the `stats=` hook (`Encoder.encode`), the JAX package's.
+STATS_KEYS = ("disp_ms", "wait_ms", "up_n", "down_n")
 
 
 def frame_signal(samples: np.ndarray, channels: int, cfg: CodecConfig,
@@ -184,8 +191,31 @@ class Encoder:
             self.device,
         )
 
-    def encode(self, samples: np.ndarray, channels: int) -> EncodedAudio:
-        """Encode interleaved float32 PCM (codec.rs:421-565)."""
+    def encode(self, samples: np.ndarray, channels: int,
+               stats: Optional[dict] = None) -> EncodedAudio:
+        """Encode interleaved float32 PCM (codec.rs:421-565).
+
+        `stats`, if given, accumulates the loop's stage and transfer
+        attribution (the JAX package's keys, each set with setdefault and
+        added to, so one dict can sum several calls):
+
+        * ``disp_ms`` — host ms issuing the upload and each segment's
+          launches.  On CUDA the segment call also blocks on the device:
+          ``masked_select`` (`ops.encode.compact_pairs`) needs the
+          segment's kept-pair count, and the raw-row select its raw count,
+          so this key holds each segment's device math up to those counts;
+          it cannot be split from the issuing without adding a sync.
+        * ``wait_ms`` — host ms in the segment's downloads (``.cpu()`` of
+          the stats, the pair words and the raw rows).
+        * ``up_n`` — host→device copies: 1, the interleaved signal.
+        * ``down_n`` — device→host copies: 2 a segment (stats, words), plus
+          1 for a segment with raw-PCM frames.  The JAX package fetches
+          the stats and a guessed pair prefix in one download; here the
+          pair count is known before the download, so it is exact.
+
+        The counts are of calls, whatever the device, so a CPU run gives
+        the card's.  Output is identical with or without the hook.
+        """
         samples = np.asarray(samples)
         if np.issubdtype(samples.dtype, np.integer):
             raise TypeError(
@@ -194,16 +224,17 @@ class Encoder:
             )
         with maybe_trace("encode"):
             return self._encode(samples.astype(np.float32, copy=False),
-                                channels, pcm16=False)
+                                channels, pcm16=False, stats=stats)
 
-    def encode_pcm16(self, samples_i16: np.ndarray,
-                     channels: int) -> EncodedAudio:
+    def encode_pcm16(self, samples_i16: np.ndarray, channels: int,
+                     stats: Optional[dict] = None) -> EncodedAudio:
         """Exact fast path for 16-bit integer sources: the same container
         as `encode(samples_i16 / 32768.0, ch)`, with the division on the
-        device (exact in f32) after a half-size upload."""
+        device (exact in f32) after a half-size upload.  `stats`: see
+        `encode`."""
         with maybe_trace("encode"):
             return self._encode(np.asarray(samples_i16, np.int16), channels,
-                                pcm16=True)
+                                pcm16=True, stats=stats)
 
     def encode_many(self, items) -> list:
         """Encode several tracks (glc_tpu/codec/encoder.py:468-905):
@@ -230,7 +261,7 @@ class Encoder:
             return [self._encode(s, c, pcm16=p) for s, c, p in prepped]
 
     def _encode(self, samples: np.ndarray, channels: int, *,
-                pcm16: bool) -> EncodedAudio:
+                pcm16: bool, stats: Optional[dict] = None) -> EncodedAudio:
         cfg = self.config
         hop, frame_size, n = cfg.hop_size, cfg.frame_size, cfg.n
         C = int(channels)
@@ -249,9 +280,13 @@ class Encoder:
             xup[:total_samples] = samples
         else:
             xup = samples
+        clock = StageClock(stats, STATS_KEYS)
+        t0 = clock.tick()
         xfull = planarize(upload(xup, self.device), C, lead, n, need_hops)
+        clock.count("up_n")
         if pcm16:
             xfull = xfull.to(torch.float32) / 32768.0  # exact: 2^15
+        clock.add("disp_ms", t0)
 
         nnz_all = np.empty((F, C), np.int64)
         scales_all = np.empty((F, C), np.float32)
@@ -260,6 +295,7 @@ class Encoder:
         raw_parts = []
         for start, k in plan:
             valid = min(k, F - start)
+            t0 = clock.tick()
             stats_d, words_d, raw_d = encode_segment(
                 xfull, start, valid, self.tables,
                 quality=cfg.quality_factor,
@@ -267,17 +303,22 @@ class Encoder:
                 compression_threshold=cfg.compression_threshold,
                 max_q=cfg.max_q,
             )
-            stats = stats_d.cpu().numpy()  # waits for the segment
-            nnz_all[start : start + valid] = stats[:, :C]
-            scales_all[start : start + valid] = stats[:, C : 2 * C].view(
+            t0 = clock.add("disp_ms", t0)
+            seg = stats_d.cpu().numpy()  # waits for the segment
+            words = words_d.cpu().numpy()
+            raw = raw_d.cpu().numpy() if raw_d.shape[0] else None
+            clock.add("wait_ms", t0)
+            clock.count("down_n", 2 + (raw is not None))
+            nnz_all[start : start + valid] = seg[:, :C]
+            scales_all[start : start + valid] = seg[:, C : 2 * C].view(
                 np.float32
             )
-            raw_mask_all[start : start + valid] = stats[:, 2 * C] != 0
-            pair_parts.append(pairs_from_words(words_d.cpu().numpy()))
-            if raw_d.shape[0]:
+            raw_mask_all[start : start + valid] = seg[:, 2 * C] != 0
+            pair_parts.append(pairs_from_words(words))
+            if raw is not None:
                 # channel-major flatten — the reference's actual storage
                 # layout (codec.rs:471-503, quirk Q13)
-                raw_parts.append(raw_d.cpu().numpy().reshape(-1, C * frame_size))
+                raw_parts.append(raw.reshape(-1, C * frame_size))
 
         pairs_all = np.concatenate(pair_parts)
         raw_all = (

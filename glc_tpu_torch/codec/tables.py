@@ -2,11 +2,17 @@
 
 Port of ``glc_tpu/codec/tables.py``.  The codec has no trained weights:
 its parameters are the MDCT and perceptual tables, held here as buffers so
-``.to(device)`` moves them.  `len_bucket` and `chunk_size_for` are copied
-unchanged; they fix the segment and chunk geometry.
+``.to(device)`` moves them.  `DeviceTables` / `get_device_tables` are the
+JAX package's names for the same tables as a tuple, the argument order of
+the chunk programs (``ops.encode_chunk_device``,
+``ops.decode_chunk_device``).  `len_bucket` and `chunk_size_for` are
+copied unchanged; they fix the segment and chunk geometry.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -14,6 +20,7 @@ from torch import nn
 
 from ..ops.mdct import get_mdct_tables
 from ..ops.psycho import get_perceptual_tables
+from .device import resolve_device
 
 
 class CodecTables(nn.Module):
@@ -32,7 +39,7 @@ class CodecTables(nn.Module):
         f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
         self.register_buffer("cos_table", f32(cos_table))
         self.register_buffer("window", f32(window))
-        self.register_buffer("norm", f32(np.float32(norm)))
+        self.register_buffer("norm", torch.tensor(np.float32(norm)))
         self.register_buffer("band_mask", f32(band_mask))
         self.register_buffer("band_inv_count", f32(band_inv_count))
         self.register_buffer("band_pf", f32(band_pf))
@@ -67,6 +74,37 @@ def get_codec_tables(n: int, frame_size: int, sample_rate: int,
         mt.cos_table, mt.window, mt.norm, pt.band_mask, pt.band_inv_count,
         pt.band_pf, pt.band_of, pt.inv_w, device,
     )
+
+
+class DeviceTables(NamedTuple):
+    """The tables in the JAX package's field order, which is the order of
+    `encode_chunk_device`'s table arguments (`decode_chunk_device` takes
+    the first three): ``encode_chunk_device(blocks, *tables)``."""
+
+    cos_table: torch.Tensor       # [n, frame_size] f32
+    window: torch.Tensor          # [frame_size] f32
+    norm: torch.Tensor            # 0-dim f32
+    band_mask: torch.Tensor       # [MAX_BANDS, n] f32
+    band_inv_count: torch.Tensor  # [MAX_BANDS] f32
+    band_pf: torch.Tensor         # [MAX_BANDS] f32
+    band_of: torch.Tensor         # [n] int64 (the JAX package's is int32)
+    inv_w: torch.Tensor           # [n] f32
+
+
+@lru_cache(maxsize=16)
+def _device_tables(n: int, frame_size: int, sample_rate: int,
+                   device: torch.device) -> DeviceTables:
+    tables = get_codec_tables(n, frame_size, sample_rate, device)
+    return DeviceTables(*(getattr(tables, f) for f in DeviceTables._fields))
+
+
+def get_device_tables(n: int, frame_size: int, sample_rate: int,
+                      device=None) -> DeviceTables:
+    """The buffers of one `CodecTables` on `device` (None resolves as every
+    entry point does: `resolve_device`) as a `DeviceTables`, made once per
+    (n, frame_size, sample_rate, device) and kept.  ``band_of`` is int64,
+    the index type of torch's gathers."""
+    return _device_tables(n, frame_size, sample_rate, resolve_device(device))
 
 
 def pow2_bucket(count: int, cap: int, floor: int = 16) -> int:

@@ -40,9 +40,11 @@ def dense_q(pos: torch.Tensor, vals: torch.Tensor, frames: int,
 def blocks_from_frames(
     q: torch.Tensor,         # [K, C, n] int16
     scales: torch.Tensor,    # [K, C] f32
-    raw_idx: torch.Tensor,   # [R] int64 — frames that hold raw PCM
-    raw_rows: torch.Tensor,  # [R, C, frame_size] int16
-    tables,
+    raw_idx: torch.Tensor,   # [R] int64 frame indices, or [K] bool
+    raw_rows: torch.Tensor,  # [R, C, frame_size] int16 (or [K, ...])
+    cos_table: torch.Tensor,
+    window: torch.Tensor,
+    norm,                    # f32 scalar: a float or a 0-dim tensor
     *,
     max_q: float = 32768.0,
     window_raw: bool = False,
@@ -53,13 +55,17 @@ def blocks_from_frames(
     * MDCT frames: IMDCT then synthesis window (codec.rs:669-675), fused
     * raw frames: i16/32767, NOT re-windowed (codec.rs:626-643, quirk Q4;
       window_raw=True is the clean Princen-Bradley path)
+
+    The raw frames come as indices with their rows, or as the JAX
+    package's dense form: a bool mask over the K frames with rows for all
+    K, selected with ``where`` (no host sync).  Both give a raw frame the
+    same bits.
     """
     K, C, n = q.shape
     sc = torch.clamp_min(scales, 1e-12)
     coeffs = (q.to(torch.float32) / max_q) * sc[..., None]
     blocks = imdct_window(
-        coeffs.reshape(K * C, n), tables.cos_table, tables.window,
-        tables.norm_value,
+        coeffs.reshape(K * C, n), cos_table, window, norm,
     ).view(K, C, 2 * n)
     if raw_idx.numel():
         # a device divisor keeps this a true division: CUDA turns division
@@ -67,7 +73,9 @@ def blocks_from_frames(
         div = torch.full((), 32767.0, dtype=torch.float32, device=q.device)
         raw_f = raw_rows.to(torch.float32) / div
         if window_raw:
-            raw_f = raw_f * tables.window
+            raw_f = raw_f * window
+        if raw_idx.dtype == torch.bool:
+            return torch.where(raw_idx[:, None, None], raw_f, blocks)
         blocks[raw_idx] = raw_f
     return blocks
 
@@ -86,6 +94,51 @@ def overlap_add(blocks: torch.Tensor, carries: torch.Tensor, counts):
         o += count
         ends.append(second[o - 1 : o])
     return first + torch.cat(prev), torch.cat(ends)
+
+
+def decode_chunk_device(
+    q,                       # [K, C, n] int16 dense quantized coeffs
+    scales,                  # [K, C] f32
+    raw_pcm,                 # [K, C, frame_size] int16 (zeros where not raw)
+    is_raw,                  # [K] bool
+    carry,                   # [C, n] f32: second half of the previous block
+    num_valid,               # frames present: an int or a 0-dim tensor
+    cos_table: torch.Tensor,
+    window: torch.Tensor,
+    norm,                    # f32 scalar: a float or a 0-dim tensor
+    *,
+    max_q: float = 32768.0,
+    window_raw: bool = False,
+    use_pallas: bool = False,
+):
+    """One chunk of one track (``glc_tpu/ops/decode.py::
+    decode_chunk_device``): returns (hops f32 [K, C, n], new_carry f32
+    [C, n]) on the tables' device.
+
+    Dequantize, IMDCT+window (one `imdct_window` launch on K·C rows on the
+    card), raw select and the shifted overlap-add after `carry`, as
+    `decode_stacked` computes them; ``new_carry`` is the second half of
+    frame ``max(num_valid - 1, 0)`` (codec.rs:688-705).  The raw frames are
+    selected densely by `is_raw`, and a tensor `num_valid` is read on the
+    device, so the call makes no host sync.  Arrays may be numpy or
+    tensors, as the JAX function takes either.  `use_pallas` is accepted
+    and unread: on CUDA the hand kernel is the one path (as in
+    `CodecConfig`).
+    """
+    dev = cos_table.device
+    q, scales, raw_pcm, is_raw, carry = (
+        torch.as_tensor(x, device=dev)
+        for x in (q, scales, raw_pcm, is_raw, carry))
+    n = q.shape[-1]
+    blocks = blocks_from_frames(q, scales, is_raw, raw_pcm, cos_table,
+                                window, norm, max_q=max_q,
+                                window_raw=window_raw)
+    hops, _end = overlap_add(blocks, carry[None], [q.shape[0]])
+    second = blocks[..., n:]
+    if torch.is_tensor(num_valid):
+        last = (num_valid.to(dev, torch.int64) - 1).clamp_min(0).reshape(1)
+        return hops, second.index_select(0, last)[0]
+    return hops, second[max(int(num_valid) - 1, 0)]
 
 
 def decode_stacked(
@@ -113,8 +166,10 @@ def decode_stacked(
     Returns (rows [N (+ B if last), C, n] f32 — each track's hops, each
     followed by its tail, the new carry, if `last`; new carries [B, C, n]).
     """
-    blocks = blocks_from_frames(q, scales, raw_idx, raw_rows, tables,
-                                max_q=max_q, window_raw=window_raw)
+    blocks = blocks_from_frames(q, scales, raw_idx, raw_rows,
+                                tables.cos_table, tables.window,
+                                tables.norm_value, max_q=max_q,
+                                window_raw=window_raw)
     hops, new = overlap_add(blocks, carries, counts)
     if not last:
         return hops, new

@@ -1,11 +1,11 @@
 """Device-side encode math: window → MDCT → masking → quantize → pairs.
 
 Port of ``glc_tpu/ops/encode.py`` (``round_half_away``, ``encode_math``,
-``frames_from_signal``, ``_planarize_device`` and the segment body
-``_encode_signal_body``) as eager torch ops.  One segment of frames for all
-channels is one batch: the MDCT is one f32 matmul over every block, the
-masking thresholds are a band matmul, and the keep/quantize gate is
-elementwise.
+``encode_chunk_device``, ``frames_from_signal``, ``_planarize_device`` and
+the segment body ``_encode_signal_body``) as eager torch ops.  One segment
+of frames for all channels is one batch: the MDCT is one f32 matmul over
+every block, the masking thresholds are a band matmul, and the
+keep/quantize gate is elementwise.
 
 The JAX package's six pair-compaction modes, budgets and stats-only program
 exist to keep transfers over a TPU host link small and fixed in shape.
@@ -107,6 +107,37 @@ def encode_math(
     use_raw = comp_size >= raw_limit
 
     return q, nnz, scale, raw, use_raw
+
+
+def encode_chunk_device(
+    blocks,                    # [K, C, frame_size] f32, un-windowed
+    cos_table: torch.Tensor,
+    window: torch.Tensor,
+    norm,
+    band_mask: torch.Tensor,
+    band_inv_count: torch.Tensor,
+    band_pf: torch.Tensor,
+    band_of: torch.Tensor,
+    inv_w: torch.Tensor,
+    *,
+    quality: float = 0.7,
+    noise_floor_db: float = -48.0,
+    compression_threshold: float = 0.85,
+    max_q: float = 32768.0,
+):
+    """`encode_math` of one chunk of frames on the tables' device
+    (``glc_tpu/ops/encode.py::encode_chunk_device``): returns (q, nnz,
+    scales, raw_pcm, use_raw).  On the card its MDCT and band sums are the
+    kernels `mdct_rows` and `band_energy`, one launch each on K·C rows.
+    Like the JAX function it leaves q and nnz unmasked on the raw frames
+    (`encode_segment` masks them).  `blocks` may be numpy or a tensor, as
+    the JAX function takes either."""
+    return encode_math(
+        torch.as_tensor(blocks, device=cos_table.device), cos_table,
+        window, norm, band_mask, band_inv_count, band_pf, band_of, inv_w,
+        quality=quality, noise_floor_db=noise_floor_db,
+        compression_threshold=compression_threshold, max_q=max_q,
+    )
 
 
 def frames_from_signal(xpad: torch.Tensor, n: int) -> torch.Tensor:

@@ -242,6 +242,17 @@ def _cached(cache: WeakTensorKeyDictionary, key: torch.Tensor, make):
 _SPLITS = WeakTensorKeyDictionary()
 _COS_SPLITS = WeakTensorKeyDictionary()
 _PLANS = WeakTensorKeyDictionary()
+_SCALARS = WeakTensorKeyDictionary()
+
+
+def host_scalar(x) -> float:
+    """`x`, a float or a one-element tensor, as a Python float.  A tensor
+    on the card is read to the host once and kept as long as it lives (read
+    again if it is changed in place), so a resident table scalar costs one
+    sync, not one a launch."""
+    if not torch.is_tensor(x):
+        return float(x)
+    return _cached(_SCALARS, x, lambda t: float(t))[0]
 
 
 def table_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -526,7 +537,8 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
                  window: torch.Tensor, norm) -> torch.Tensor:
     """Windowed IMDCT blocks [B, 2n] f32 of coeffs [B, n] f32.
 
-    `norm` is the f32 IMDCT scale (a float, or a 0-dim tensor).  A CPU
+    `norm` is the f32 IMDCT scale (a float, or a 0-dim tensor, read once
+    by `host_scalar`).  A CPU
     `coeffs` takes `imdct_window_reference`; a CUDA one launches the kernel
     on the current stream or raises.
     """
@@ -550,7 +562,8 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     table_hi, table_lo = table_split(cos_table)
     rc = lib.glc_imdct_window(
         coeffs.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
-        window.data_ptr(), out.data_ptr(), B, n, float(norm), _stream(dev),
+        window.data_ptr(), out.data_ptr(), B, n, host_scalar(norm),
+        _stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"imdct_window launch failed: CUDA error {rc}")

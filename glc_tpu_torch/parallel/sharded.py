@@ -231,7 +231,8 @@ def decode_local(mesh: DeviceMesh, q, scales, raw_idx, raw_rows, carry,
     Bl, Kl, C, n = q.shape
     blocks = blocks_from_frames(
         q.reshape(Bl * Kl, C, n), scales.reshape(Bl * Kl, C), raw_idx,
-        raw_rows, tables, max_q=max_q, window_raw=window_raw,
+        raw_rows, tables.cos_table, tables.window, tables.norm_value,
+        max_q=max_q, window_raw=window_raw,
     ).view(Bl, Kl, C, 2 * n)
     return _ola_with_halo(blocks, carry, n, mesh)
 
@@ -285,7 +286,8 @@ def roundtrip_step_sharded(
     raw_idx = torch.nonzero(use_raw.reshape(-1)).squeeze(1)
     rec = blocks_from_frames(
         q.reshape(-1, C, n), scale.reshape(-1, C), raw_idx,
-        raw.reshape(-1, C, frame_size)[raw_idx], tables,
+        raw.reshape(-1, C, frame_size)[raw_idx], tables.cos_table,
+        tables.window, tables.norm_value,
     ).view(Bl, Kl, C, frame_size)
     hops, _tail = _ola_with_halo(
         rec, _take(carry, shard, frames_axis=False), n, mesh)

@@ -47,6 +47,26 @@ def pair_flips(fs_a, fs_b, n: int = 1024) -> dict:
     }
 
 
+def dense_pair_flips(q_a: np.ndarray, q_b: np.ndarray) -> dict:
+    """`pair_flips` of two dense quantized arrays of equal shape (the q of
+    ``encode_chunk_device`` or ``encode_math``): a position is kept where
+    its q is nonzero."""
+    if q_a.shape != q_b.shape:
+        raise AssertionError(f"q shapes differ: {q_a.shape} vs {q_b.shape}")
+    ka, kb = q_a != 0, q_b != 0
+    dq = np.abs(q_a.astype(np.int64) - q_b.astype(np.int64))[ka & kb]
+    kept = int(np.count_nonzero(ka | kb))
+    gate = int(np.count_nonzero(ka != kb))
+    pm1 = int(np.count_nonzero(dq == 1))
+    return {
+        "kept": kept,
+        "gate": gate,
+        "pm1": pm1,
+        "max_dq": int(dq.max(initial=0)),
+        "rate": (gate + pm1) / max(kept, 1),
+    }
+
+
 def check_containers(ea, eb, n: int = 1024) -> dict:
     """Raise AssertionError unless two EncodedAudio agree within the
     contract; return the `pair_flips` dict."""

@@ -51,12 +51,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from utils import generate_sine_wave, generate_white_noise  # noqa: E402
 
 from glc_tpu_torch import Decoder, Encoder, serialize_encoded  # noqa: E402
-from glc_tpu_torch.codec.tables import get_codec_tables  # noqa: E402
+from glc_tpu_torch.codec.tables import (  # noqa: E402
+    get_codec_tables, get_device_tables,
+)
 from glc_tpu_torch.container.schema import (  # noqa: E402
     PAIR_DTYPE, AudioHeader, EncodedAudio, FrameSet, GaplessInfo,
 )
 from glc_tpu_torch.io.wav import convert_f32_to_i16  # noqa: E402
 from glc_tpu_torch.ops import decode as decode_ops  # noqa: E402
+from glc_tpu_torch.ops import (  # noqa: E402
+    decode_chunk_device, encode_chunk_device,
+)
 from glc_tpu_torch.ops.encode import encode_math  # noqa: E402
 from glc_tpu_torch.parallel import (  # noqa: E402
     decode_album_sharded, decode_chunk_sharded, encode_album_sharded,
@@ -66,7 +71,7 @@ from glc_tpu_torch.parallel.mesh import mesh_shape  # noqa: E402
 from glc_tpu_torch.parallel.sharded import (  # noqa: E402
     Shard, check_tables, shard_device,
 )
-from glc_tpu_torch.parity import check_containers  # noqa: E402
+from glc_tpu_torch.parity import check_containers, dense_pair_flips  # noqa: E402
 
 RATE = 44100
 N, FRAME = 1024, 2048
@@ -251,6 +256,15 @@ def run_cases(world: int, device_type: str) -> dict:
             per_stream.append(out.cpu().numpy())
         serial["decode"] = (np.stack([o[:-1] for o in per_stream]),
                             np.stack([o[-1] for o in per_stream]))
+        # tests/test_sharding.py's single-device references
+        dtabs = get_device_tables(N, FRAME, RATE, dev)
+        serial["encode_chunk_device"] = _np(encode_chunk_device(
+            blocks.reshape(-1, 2, FRAME), *dtabs))
+        per_stream = [_np(decode_chunk_device(
+            q[b], scales[b], raw[b], is_raw[b], carry[b], q.shape[1],
+            *dtabs[:3])) for b in range(q.shape[0])]
+        serial["decode_chunk_device"] = tuple(np.stack(t)
+                                              for t in zip(*per_stream))
         serial["album_encode"] = [serialize_encoded(ea) for ea in encoded]
         serial["album_decode"] = [serial_dec.decode(ea) for ea in encoded]
         serial["album_short"] = [serialize_encoded(enc.encode(s, 2))
@@ -368,15 +382,6 @@ def _containers(blobs):
     return [deserialize_encoded(b) for b in blobs]
 
 
-def _flips(q_a, q_b):
-    """(flip rate, max |dq| where both kept) of two dense q arrays: the pair
-    contract of parity.py on dense arrays."""
-    ka, kb = q_a != 0, q_b != 0
-    dq = np.abs(q_a.astype(np.int32) - q_b.astype(np.int32))[ka & kb]
-    flips = np.count_nonzero(ka != kb) + np.count_nonzero(dq == 1)
-    return flips / max(np.count_nonzero(ka | kb), 1), int(dq.max(initial=0))
-
-
 PARAM_WORLDS = pytest.mark.parametrize("name", list(WORLDS))
 
 
@@ -469,6 +474,28 @@ def test_sharded_encode_matches_serial(worlds, name):
 
 
 @PARAM_WORLDS
+def test_sharded_encode_matches_encode_chunk_device(worlds, name):
+    """tests/test_sharding.py:44-65 on the port: the sharded encode equals
+    the single-device chunk program on the flattened stream axis, exactly
+    (the encode's products are row-invariant, module docstring)."""
+    res = worlds[name]
+    for got, want in zip(res["sharded"]["encode"],
+                         res["serial"]["encode_chunk_device"], strict=True):
+        assert np.array_equal(got.reshape(want.shape), want)
+
+
+@PARAM_WORLDS
+def test_sharded_decode_matches_decode_chunk_device(worlds, name):
+    """tests/test_sharding.py:67-88 on the port: each stream of the sharded
+    decode against `decode_chunk_device` with its carry, hops and tail
+    within atol 1e-5, that test's bound."""
+    hops, tail = worlds[name]["sharded"]["decode"]
+    want_hops, want_tail = worlds[name]["serial"]["decode_chunk_device"]
+    np.testing.assert_allclose(hops, want_hops, atol=1e-5)
+    np.testing.assert_allclose(tail, want_tail, atol=1e-5)
+
+
+@PARAM_WORLDS
 def test_sharded_encode_matches_jax(worlds, jax_results, name):
     q, nnz, scale, raw, use_raw = worlds[name]["sharded"]["encode"]
     jq, jnnz, jscale, jraw, juse_raw = jax_results[name]["encode"]
@@ -476,8 +503,8 @@ def test_sharded_encode_matches_jax(worlds, jax_results, name):
     np.testing.assert_array_equal(use_raw, juse_raw)
     np.testing.assert_allclose(scale, jscale, rtol=1e-6)
     np.testing.assert_array_equal(raw, jraw)
-    rate, max_dq = _flips(q, jq)
-    assert max_dq <= 1 and rate <= 0.01
+    flips = dense_pair_flips(q, jq)
+    assert flips["max_dq"] <= 1 and flips["rate"] <= 0.01
     assert np.array_equal(nnz, (q != 0).sum(-1))
     assert np.array_equal(jnnz, (jq != 0).sum(-1))
 
@@ -609,6 +636,11 @@ def test_cuda_sharded_cases(tmp_path):
     assert np.isfinite(sh["roundtrip"][0])
     for got, want in zip(sh["encode"], se["encode"], strict=True):
         np.testing.assert_array_equal(got.reshape(want.shape), want)
+    for got, want in zip(sh["encode"], se["encode_chunk_device"],
+                         strict=True):
+        np.testing.assert_array_equal(got.reshape(want.shape), want)
+    np.testing.assert_allclose(hops, se["decode_chunk_device"][0], atol=1e-5)
+    np.testing.assert_allclose(tail, se["decode_chunk_device"][1], atol=1e-5)
     for got, want in zip(sh["album_encode"] + sh["album_short"],
                          se["album_encode"] + se["album_short"], strict=True):
         assert got == want
