@@ -150,14 +150,37 @@ Phases, each printing its own line(s):
    imdct_window kernel event a chunk; the traced and untraced walls; and
    one play_files_gapless of the 480 s album under profiling.trace: the
    device's busy time (kernels, copies, memsets) and idle share inside
-   the call's span.
+   the call's span;
+21. geometry — the frame geometries other than the default hop of 1024
+   (`GEOMETRIES`: hop 256, 441, 500, 735 and 2048 at 44.1 kHz, 960 at
+   48 kHz; frame_size = 2·hop): 10 s of stereo through encode_pcm16 →
+   decode_i16 on the card at each, the launches counted from 0 around it
+   (one mdct_rows and one band_energy a segment, one imdct_window a
+   chunk; at hop 256 and 441 the products' launches are all of their f64
+   path, csrc/f64_rows.cuh, elsewhere none), the container within the
+   pair contract of the CPU port's and
+   the decode within 1 LSB of the CPU's; each kernel against its plain
+   version at that n, at every row count those paths launched it with
+   and at the timed rows (the error against float64 no more than twice
+   plain's, each row the bits of the same row of the largest launch); at
+   hop 960, 441 and 735 the times of each kernel, its plain version and
+   one library call beside the bound (M = 8192, B = 2816), and of the
+   copy into the padded pitch where the kernel makes one; and, at each n
+   of `PATH_NS`, mdct_rows' and imdct_window's errors through the 3xTF32
+   tile product and through their f64 path, each over plain's (the f64
+   path's, and the path the wrappers take at that n, no more than
+   twice), and both paths' times.
 
 Every path counts the kernels' launches from 0 just before it runs and
 checks them just after, and the run fails if a path launched a kernel at
-a row count that phase 4 or 5 did not check.  Then one JSON line with the
-kernel table (launch counts from the main path; times, library time and
-bound at its rows: B = 2816 for imdct_window, M = 8192 for the encode's
-kernels), and as the last line
+the default n at a row count that phase 4 or 5 did not check (phase 21
+checks its own n).  Then one JSON line with the kernel table (launch
+counts from the main path; times, library time and bound at its rows:
+B = 2816 for imdct_window, M = 8192 for the encode's kernels; under
+"geometry" each hop's launches, checked rows and, at 960, 441 and 735,
+times; the f64 path's two kernels with their launches, errors and times
+from the geometry phase at hop 441),
+and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero;
 without a CUDA device the script exits 1 and prints no result.
 
@@ -173,18 +196,25 @@ versions in their place, in alternating pairs (`encode_kernels_ab`);
 
     python3 chip_smoke.py --kernel-ab OTHER_CHECKOUT
 
-runs mdct_rows at every row count of the encode paths and imdct_window at
-every row count of the decode paths on the same seeded rows in this
-checkout and in another, in four processes (other, this, this, other),
-fails unless the outputs are the same bits, and prints each process's
-back-to-back times (`kernel_ab`);
+runs mdct_rows and band_energy at every row count of the encode paths and
+imdct_window at every row count of the decode paths, at the default n, on
+the same seeded rows in this checkout and in another, in four processes
+(other, this, this, other), fails unless the outputs are the same bits,
+and prints each process's back-to-back times (`kernel_ab`);
 
     python3 chip_smoke.py --mdct-plans
 
 times every mdct_rows tile shape back to back at those row counts beside
 the chooser's pick and torch.matmul, and samples the SM clock and power
 while the largest launch runs (`mdct_plans`: the measurement behind
-kernels.mdct_rows_plan).
+kernels.mdct_rows_plan);
+
+    python3 chip_smoke.py --path-sweep [OUT.json]
+
+measures, at every n from 1 to 1024 and on several seeds' rows, each
+product path's error against float64 over plain's (`path_sweep`: the
+measurement behind kernels._F64_MAX_N, the n up to which mdct_rows and
+imdct_window take their f64 path).
 """
 
 from __future__ import annotations
@@ -258,6 +288,8 @@ from test_torch_album import launch_rows  # noqa: E402
 from test_torch_api import (  # noqa: E402
     DECODE_KEYS, ENCODE_KEYS, UPLOADS_PER_CHUNK, chunks_of, encode_down_n,
 )
+# the n of the cuda tests' every-n cases, whose rows --path-sweep also runs
+from test_torch_kernels import GEOMETRY_NS as TEST_GEOMETRY_NS  # noqa: E402
 
 SAMPLE_RATE = 44100
 SECONDS = 180
@@ -286,6 +318,29 @@ SHARDED_TIMEOUT_S = 300  # a world's run, spawn included; collectives: 120 s
 # 2 x 2 mesh's dry-run shape (B, K), which every world's mesh divides
 ROUNDTRIP_COMMON = (4, 4)
 MSE_RTOL = 1e-6
+# The geometry phase's frame geometries (frame_size = 2·hop): (name, hop,
+# sample rate); the hops at which it times the kernels, and at what rows;
+# the n at which it holds the two product paths of mdct_rows and
+# imdct_window apart (kernels.product_path; the cut kernels._F64_MAX_N is
+# 456).  Hop 735 is 44.1 kHz's audio a 60 fps video frame: an odd hop above
+# the cut, where the tile product reads padded copies.
+GEOMETRIES = (("hop256_44k1", 256, 44100), ("hop441_44k1", 441, 44100),
+              ("hop500_44k1", 500, 44100), ("hop735_44k1", 735, 44100),
+              ("hop960_48k", 960, 48000), ("hop2048_44k1", 2048, 44100))
+GEOMETRY_SECONDS = 10
+GEOMETRY_TIMED = (960, 441, 735)
+GEOMETRY_TIMED_ROWS = {"imdct_window": 2816, "mdct_rows": 8192,
+                       "band_energy": 8192}
+PATH_NS = (1, 8, 120, 256, 441, 456, 457)
+# The f64 path's kernels (csrc/f64_rows.cuh) in the JSON line, each with
+# the wrapper that launches it, and the hop whose round trip and times
+# that line reports
+F64_KERNELS = {"imdct_window_f64": "imdct_window", "mdct_rows_f64": "mdct_rows"}
+F64_HOP = 441
+# --kernel-ab's other n (the parent's kernels took these hops too) and
+# their row counts: the geometry phase's timed ones and a few edges
+AB_SMALL_NS = (128, 256)
+AB_SMALL_ROWS = {"encode": [8192, 646, 63, 1], "decode": [2816, 63, 1]}
 # H100 SXM peaks (NVIDIA's data sheet, dense): TF32 on the tensor cores, the
 # unit that bounds an f32-accurate product on the card, and HBM3
 PEAK_TF32_FLOPS = 495e12
@@ -491,20 +546,31 @@ def encode_rows(pcm: np.ndarray) -> list[int]:
     return sorted(rows, reverse=True)
 
 
-# kernel -> the row counts the paths launched it with
+# kernel -> the row counts the paths launched it with at the default n
 LAUNCHED_ROWS: dict[str, set[int]] = {name: set() for name in KERNEL_NAMES}
+# kernel -> {n: the row counts} at the geometry phase's other n
+GEOMETRY_LAUNCHED: dict[str, dict[int, set[int]]] = {
+    name: {} for name in KERNEL_NAMES}
 
 
-def record_launch_rows(
-        record=lambda name, rows: LAUNCHED_ROWS[name].add(rows)):
+def record_rows(name: str, rows: int, n: int) -> None:
+    if n == DEFAULT_CONFIG.n:
+        LAUNCHED_ROWS[name].add(rows)
+    else:
+        GEOMETRY_LAUNCHED[name].setdefault(n, set()).add(rows)
+
+
+def record_launch_rows(record=record_rows):
     """Route the paths' calls of the three kernel wrappers through
-    `record(kernel, row count)`; the wrappers themselves, and their launch
-    counts, stay as they are (the kernel phases call them directly)."""
+    `record(kernel, row count, n)`; the wrappers themselves, and their
+    launch counts, stay as they are (the kernel phases call them
+    directly)."""
     def wrap(module, name):
         wrapper = getattr(module, name)
+        per_n = 2 if name == "mdct_rows" else 1  # win's rows are 2n wide
 
         def recorded(rows, *args):
-            record(name, rows.shape[0])
+            record(name, rows.shape[0], rows.shape[1] // per_n)
             return wrapper(rows, *args)
 
         setattr(module, name, recorded)
@@ -517,6 +583,8 @@ def record_launch_rows(
 def reset_launches() -> None:
     for fn in (imdct_window, mdct_rows, band_energy):
         fn.launches = 0
+    for fn in (imdct_window, mdct_rows):
+        fn.f64_launches = 0
 
 
 def launch_counts() -> dict:
@@ -1014,45 +1082,59 @@ import torch
 sys.path.insert(0, sys.argv[1])
 import glc_tpu_torch
 from glc_tpu_torch.codec.tables import get_codec_tables
-from glc_tpu_torch.ops.kernels import imdct_window, mdct_rows
+from glc_tpu_torch.ops.kernels import band_energy, imdct_window, mdct_rows
 assert glc_tpu_torch.__file__.startswith(sys.argv[1]), glc_tpu_torch.__file__
 {seeded_rows}
 {device_ms}
-tables = get_codec_tables(1024, 2048, {rate}, "cuda")
-n = tables.n
-out = {{"mdct_rows": {{}}, "imdct_window": {{}}}}
-enc, dec = {enc_rows}, {dec_rows}
-win_all = seeded_rows(max(enc), 2 * n, 2, tables.window)
-for M in enc:
-    win = win_all[-M:].contiguous()
-    args = (win, tables.cos_table, tables.norm)
-    y = mdct_rows(*args).cpu().numpy()
-    out["mdct_rows"][M] = (hashlib.sha256(y.tobytes()).hexdigest(),
-                           _device_ms(lambda: mdct_rows(*args)))
-for B in dec:
-    args = (seeded_rows(B, n, 1), tables.cos_table, tables.window,
-            tables.norm_value)
-    y = imdct_window(*args).cpu().numpy()
-    out["imdct_window"][B] = (hashlib.sha256(y.tobytes()).hexdigest(),
-                              _device_ms(lambda: imdct_window(*args)))
+out = {{"mdct_rows": {{}}, "imdct_window": {{}}, "band_energy": {{}}}}
+for n, enc, dec in {shapes}:
+    tables = get_codec_tables(n, 2 * n, {rate}, "cuda")
+    win_all = seeded_rows(max(enc), 2 * n, 2, tables.window)
+    coeffs_all = seeded_rows(max(enc), n, 3) * 0.5
+    for M in enc:
+        win = win_all[-M:].contiguous()
+        args = (win, tables.cos_table, tables.norm)
+        y = mdct_rows(*args).cpu().numpy()
+        out["mdct_rows"][f"{{n}} {{M}}"] = (
+            hashlib.sha256(y.tobytes()).hexdigest(),
+            _device_ms(lambda: mdct_rows(*args)))
+        bargs = (coeffs_all[-M:].contiguous(), tables.band_mask)
+        y = band_energy(*bargs).cpu().numpy()
+        out["band_energy"][f"{{n}} {{M}}"] = (
+            hashlib.sha256(y.tobytes()).hexdigest(),
+            _device_ms(lambda: band_energy(*bargs)))
+    for B in dec:
+        args = (seeded_rows(B, n, 1), tables.cos_table, tables.window,
+                tables.norm_value)
+        y = imdct_window(*args).cpu().numpy()
+        out["imdct_window"][f"{{n}} {{B}}"] = (
+            hashlib.sha256(y.tobytes()).hexdigest(),
+            _device_ms(lambda: imdct_window(*args)))
 print(json.dumps(out))
 """
 
 
 def kernel_ab(other: Path, smi: str) -> None:
-    """mdct_rows at every row count of the encode paths and imdct_window at
-    every row count of the decode paths (and the tile edges), on the same
-    seeded rows, in this checkout and in `other` (the parent commit's, say),
-    each in its own process, in the order other, this, this, other: the
-    outputs' SHA-256 must agree in all four (bit for bit), and each
-    process's back-to-back device times are printed."""
+    """mdct_rows and band_energy at every row count of the encode paths and
+    imdct_window at every row count of the decode paths (and the tile
+    edges), at the default n, and all three at AB_SMALL_ROWS at each n
+    of AB_SMALL_NS, on the same seeded rows, in this checkout and in
+    `other` (the parent commit's, say), each in its own process, in the
+    order other, this, this, other.  At the default n, and at any other n
+    where this checkout takes the tile product
+    (`kernels.product_path`), the outputs' SHA-256 must agree in all four
+    (bit for bit); each process's back-to-back device times are
+    printed."""
     pcm = make_signal()
     enc = sorted(set(encode_rows(pcm)) | set(KERNEL_EDGES), reverse=True)
     dec = sorted(set(path_rows(pcm)) | set(KERNEL_EDGES), reverse=True)
+    shapes = [(DEFAULT_CONFIG.n, enc, dec)] + [
+        (n, AB_SMALL_ROWS["encode"], AB_SMALL_ROWS["decode"])
+        for n in AB_SMALL_NS]
     child = _KERNEL_AB_CHILD.format(
         seeded_rows=inspect.getsource(seeded_rows),
         device_ms=inspect.getsource(_device_ms), rate=SAMPLE_RATE,
-        enc_rows=enc, dec_rows=dec)
+        shapes=shapes)
     here = Path(__file__).resolve().parent
     runs = []
     for root in (other, here, here, other):
@@ -1062,20 +1144,29 @@ def kernel_ab(other: Path, smi: str) -> None:
         if proc.returncode:
             raise AssertionError(f"kernel A/B in {root}:\n{proc.stderr}")
         runs.append((root, json.loads(proc.stdout.splitlines()[-1])))
-    for kernel, counts in (("mdct_rows", enc), ("imdct_window", dec)):
-        differ = [M for M in counts
-                  if len({r[kernel][str(M)][0] for _root, r in runs}) != 1]
-        for M in counts:
-            print(f"[kernel A/B] {kernel} rows={M} ({smi}), back to back ms "
-                  + ", ".join(f"{'this' if root == here else 'other'} "
-                              f"{r[kernel][str(M)][1]:.4f}"
-                              for root, r in runs)
-                  + f"; bits {'differ' if M in differ else 'equal'}")
-        if differ:
-            raise AssertionError(f"{kernel}: this checkout's bits differ from "
-                                 f"{other}'s at rows {differ}")
-        print(f"[kernel A/B] {kernel}: this checkout and {other} give the same "
-              f"bits at all {len(counts)} row counts, in 4 processes")
+    for n, enc_n, dec_n in shapes:
+        paths = {"band_energy": "one kernel"}
+        for kernel in ("mdct_rows", "imdct_window"):
+            paths[kernel] = kernels.product_path(n)
+        for kernel, counts in (("mdct_rows", enc_n), ("band_energy", enc_n),
+                               ("imdct_window", dec_n)):
+            keys = [f"{n} {M}" for M in counts]
+            differ = [k for k in keys
+                      if len({r[kernel][k][0] for _root, r in runs}) != 1]
+            for k in keys:
+                print(f"[kernel A/B] {kernel} n={n} rows={k.split()[1]} "
+                      f"({smi}; this checkout: {paths[kernel]}), back to "
+                      f"back ms " + ", ".join(
+                          f"{'this' if root == here else 'other'} "
+                          f"{r[kernel][k][1]:.4f}" for root, r in runs)
+                      + f"; bits {'differ' if k in differ else 'equal'}")
+            if differ and paths[kernel] != "f64":
+                raise AssertionError(f"{kernel}: this checkout's bits differ "
+                                     f"from {other}'s at (n, rows) {differ}")
+            print(f"[kernel A/B] {kernel} n={n}: this checkout and {other} "
+                  f"give {'different' if differ else 'the same'} bits at "
+                  f"{len(differ) if differ else len(counts)} of {len(counts)} "
+                  f"row counts, in 4 processes")
 
 
 def phase_cpu(pcm: np.ndarray, encoded_cuda, out_cuda):
@@ -2180,7 +2271,7 @@ def sharded_rank_run(inputs: Path) -> dict:
     parallel.encode_album_sharded(mesh, tracks[warm], 2, SAMPLE_RATE)
     parallel.decode_album_sharded(mesh, serial[warm])
     rows: dict = {name: [] for name in KERNEL_NAMES}
-    record_launch_rows(lambda name, m: rows[name].append(m))
+    record_launch_rows(lambda name, m, _n: rows[name].append(m))
     reset_launches()
     res = {"mesh": tuple(mesh.shape),
            "device": str(torch.cuda.current_device())}
@@ -2370,6 +2461,385 @@ def phase_sharded(albums, smi: str) -> dict:
     return summary
 
 
+def geometry_round_trip(hop: int, rate: int, smi: str) -> dict:
+    """The GEOMETRY_SECONDS stereo encode_pcm16 → decode_i16 on the card
+    at hop `hop` (frame_size 2·hop), with the kernels' launches counted
+    around it: one mdct_rows and one band_energy launch a segment, one
+    imdct_window launch a decode chunk, the products' launches all of
+    their f64 path where `kernels.product_path(hop)` says so, else none.
+    The container within the pair contract of the CPU port's, the card's
+    decode within 1 LSB of the CPU port's decode of the same container.
+    Returns the launch counts, the f64 path's as `F64_KERNELS` names it."""
+    cfg = replace(DEFAULT_CONFIG, hop_size=hop, frame_size=2 * hop)
+    pcm = make_signal(GEOMETRY_SECONDS, rate=rate, seed=hop)
+    plan = upload_geometry(len(pcm), 2, cfg)[3]
+    enc = Encoder(rate, config=cfg, device="cuda")
+    dec = Decoder(2, rate, config=cfg, device="cuda")
+    reset_launches()
+    encoded = enc.encode_pcm16(pcm, 2)
+    out = dec.decode_i16(encoded)
+    counts = launch_counts()
+    f64 = kernels.product_path(hop) == "f64"
+    for name, of in F64_KERNELS.items():
+        counts[name] = getattr(kernels, of).f64_launches
+    chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
+    want = {"imdct_window": chunks, "mdct_rows": len(plan),
+            "band_energy": len(plan), "imdct_window_f64": chunks * f64,
+            "mdct_rows_f64": len(plan) * f64}
+    if counts != want:
+        raise AssertionError(f"hop {hop}: launches {counts}, the geometry "
+                             f"says {want}")
+    if len(out) != len(pcm):
+        raise AssertionError(f"hop {hop}: decoded {len(out)} samples of "
+                             f"{len(pcm)}")
+    flips = check_containers(
+        encoded, Encoder(rate, config=cfg, device="cpu").encode_pcm16(pcm, 2),
+        n=hop)
+    out_cpu = Decoder(2, rate, config=cfg, device="cpu").decode_i16(encoded)
+    d = np.abs(out_cpu.astype(np.int32) - out.astype(np.int32))
+    if d.max() > 1:
+        raise AssertionError(f"hop {hop}: card vs CPU decode differs by "
+                             f"{d.max()} LSB")
+    print(f"[geometry] hop {hop} at {rate} Hz, {GEOMETRY_SECONDS} s stereo "
+          f"({smi}): {encoded.frame_set.num_frames} frames, segments "
+          f"{[k for _s, k in plan]}, {chunks} decode chunks; launches "
+          f"{counts}; card vs CPU: {flips['gate']} keep-gate and "
+          f"{flips['pm1']} +-1 flips of {flips['kept']} kept (rate "
+          f"{flips['rate']:.5%}), decode_i16 max {int(d.max())} LSB")
+    return counts
+
+
+def geometry_kernel_checks(n: int, rate: int, rows: dict) -> dict:
+    """Each kernel against its plain version at n on the row counts
+    `rows[kernel]`: within KERNEL_TOL (band_energy BAND_RTOL), the error
+    against float64 no more than twice plain's, each launch's rows the
+    bits of the same rows of the largest launch.  Returns each kernel's
+    largest |kernel - plain|."""
+    tables = get_codec_tables(n, 2 * n, rate, "cuda")
+    table64, window64 = tables.cos_table.double(), tables.window.double()
+    mask = tables.band_mask
+    top = max(max(r) for r in rows.values())
+    win_all = seeded_rows(top, 2 * n, 2, tables.window)
+    coeffs_all = mdct_rows(win_all, tables.cos_table, tables.norm)
+    sums_all = band_energy(coeffs_all, mask)
+    dec_all = seeded_rows(top, n, 1)
+    blocks_all = imdct_window(dec_all, tables.cos_table, tables.window,
+                              tables.norm_value)
+    worst = {name: 0.0 for name in KERNEL_NAMES}
+    for name in KERNEL_NAMES:
+        for M in sorted(rows[name]):
+            if name == "mdct_rows":
+                x = win_all[-M:].clone()
+                out = mdct_rows(x, tables.cos_table, tables.norm)
+                ref = mdct_rows_reference(x, tables.cos_table, tables.norm)
+                exact = (x.double() @ table64.T) * tables.norm_value
+                whole, tol = coeffs_all, dict(atol=KERNEL_TOL, rtol=KERNEL_TOL)
+            elif name == "band_energy":
+                x = coeffs_all[-M:].clone()
+                out = band_energy(x, mask)
+                ref = band_energy_reference(x, mask)
+                exact = x.double() ** 2 @ mask.double().T
+                whole, tol = sums_all, dict(atol=0.0, rtol=BAND_RTOL)
+            else:
+                x = dec_all[-M:].clone()
+                args = (x, tables.cos_table, tables.window, tables.norm_value)
+                out = imdct_window(*args)
+                ref = imdct_window_reference(*args)
+                exact = ((x.double() @ table64) * tables.norm_value) * window64
+                whole, tol = blocks_all, dict(atol=KERNEL_TOL,
+                                              rtol=KERNEL_TOL)
+            torch.cuda.synchronize()
+            if not torch.equal(out, whole[-M:]):
+                raise AssertionError(f"{name} n={n} M={M}: rows differ from "
+                                     f"the same rows of the {top}-row launch")
+            torch.testing.assert_close(out, ref, **tol)
+            err_kernel = (out.double() - exact).abs().max().item()
+            err_plain = (ref.double() - exact).abs().max().item()
+            if err_kernel > 2 * err_plain:
+                raise AssertionError(
+                    f"{name} n={n} M={M}: error vs float64 {err_kernel:.3e} "
+                    f"exceeds twice the plain version's {err_plain:.3e}")
+            worst[name] = max(worst[name], (out - ref).abs().max().item())
+    print(f"[geometry] n={n} ({rate} Hz tables), each kernel against plain: "
+          + "; ".join(f"{k} at rows {sorted(r, reverse=True)}, "
+                      f"max|kernel-plain| {worst[k]:.3e}"
+                      for k, r in rows.items())
+          + f"; errors vs float64 within twice plain's, rows == the "
+          f"{top}-row launch's")
+    return worst
+
+
+def geometry_times(n: int, rate: int, smi: str) -> dict:
+    """The times (medians of 20 single calls, and back to back:
+    `_device_ms`) of each kernel at n, its plain version and one library
+    call, beside the bound, at M = 8192 (mdct_rows, band_energy) and
+    B = 2816 (imdct_window); and the copy into the padded pitch where the
+    kernel makes one (`kernels.padded_rows`).  Returns {kernel: {...}}."""
+    tables = get_codec_tables(n, 2 * n, rate, "cuda")
+    M, B = GEOMETRY_TIMED_ROWS["mdct_rows"], GEOMETRY_TIMED_ROWS["imdct_window"]
+    win = seeded_rows(M, 2 * n, 2, tables.window)
+    coeffs = mdct_rows(win, tables.cos_table, tables.norm)
+    dec = seeded_rows(B, n, 1)
+    table_norm = (tables.cos_table * tables.norm).T.contiguous()
+    folded = tables.cos_table * (tables.norm_value * tables.window)
+    mask = tables.band_mask
+    calls = {
+        "mdct_rows": (
+            lambda: mdct_rows(win, tables.cos_table, tables.norm),
+            lambda: mdct_rows_reference(win, tables.cos_table, tables.norm),
+            lambda: torch.matmul(win, table_norm), mdct_bound(M, n), win),
+        "band_energy": (
+            lambda: band_energy(coeffs, mask),
+            lambda: band_energy_reference(coeffs, mask),
+            lambda: torch.einsum("mk,mk,bk->mb", coeffs, coeffs, mask),
+            band_bound(M, n, mask.shape[0]), None),
+        "imdct_window": (
+            lambda: imdct_window(dec, tables.cos_table, tables.window,
+                                 tables.norm_value),
+            lambda: imdct_window_reference(dec, tables.cos_table,
+                                           tables.window, tables.norm_value),
+            lambda: torch.matmul(dec, folded), kernel_bound(B, n), dec),
+    }
+    out = {}
+    for name, (kern, plain, lib, bound, padded) in calls.items():
+        ms = [_median_ms(fn) for fn in (kern, plain, lib)]
+        device = [_device_ms(fn) for fn in (kern, plain, lib)]
+        rows = B if name == "imdct_window" else M
+        copy = ""
+        entry = {"rows": rows, "ms": ms[0], "plain_ms": ms[1],
+                 "library_ms": ms[2], "bound_ms": bound[0],
+                 "bound_by": bound[1], "device_ms": device[0],
+                 "device_plain_ms": device[1], "device_library_ms": device[2]}
+        if (padded is not None and padded.shape[1] % 4
+                and kernels.product_path(n) == "tiles"):
+            copy_ms = _median_ms(lambda: kernels.padded_rows(padded))
+            entry["pad_copy_ms"] = copy_ms
+            copy = (f"; of it, the copy of {tuple(padded.shape)} to pitch "
+                    f"{kernels.row_pitch(padded.shape[1])} {copy_ms:.4f} ms")
+        out[name] = entry
+        print(f"[geometry] {name} n={n} rows={rows} ({smi}), median of 20: "
+              f"kernel {ms[0]:.4f} ms ({bound[0] / ms[0]:.1%} of the bound), "
+              f"plain {ms[1]:.4f} ms, library {ms[2]:.4f} ms; back to back: "
+              f"kernel {device[0]:.4f} ms ({bound[0] / device[0]:.1%} of the "
+              f"bound), plain {device[1]:.4f} ms, library {device[2]:.4f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}){copy}")
+    return out
+
+
+def product_paths(smi: str) -> None:
+    """Both products of mdct_rows and imdct_window at each n of PATH_NS:
+    the 3xTF32 tile product and the f64 path (csrc/f64_rows.cuh), each
+    chosen by the wrappers' `path`, on the last 1, 63 and 8192 of the
+    geometry checks' rows (`seeded_rows` seeds 2 and 1).  Each path's
+    result within KERNEL_TOL of plain; the f64 path's error against
+    float64, and that of the path the wrappers take at n
+    (`kernels.product_path`), no more than twice plain's, else the run
+    fails.  Prints every error ratio and both paths' times at 8192 rows."""
+    for n in PATH_NS:
+        tables = get_codec_tables(n, 2 * n, SAMPLE_RATE, "cuda")
+        t64, w64 = tables.cos_table.double(), tables.window.double()
+        win_all = seeded_rows(8192, 2 * n, 2, tables.window)
+        dec_all = seeded_rows(8192, n, 1)
+        calls = {
+            "mdct_rows": (
+                lambda x, **kw: mdct_rows(x, tables.cos_table, tables.norm,
+                                          **kw),
+                lambda x: mdct_rows_reference(x, tables.cos_table,
+                                              tables.norm),
+                lambda x: (x.double() @ t64.T) * tables.norm_value, win_all),
+            "imdct_window": (
+                lambda x, **kw: imdct_window(x, tables.cos_table,
+                                             tables.window, tables.norm_value,
+                                             **kw),
+                lambda x: imdct_window_reference(
+                    x, tables.cos_table, tables.window, tables.norm_value),
+                lambda x: ((x.double() @ t64) * tables.norm_value) * w64,
+                dec_all),
+        }
+        taken = kernels.product_path(n)
+        ratios, times = {}, {}
+        for name, (kern, plain, exact_of, x_all) in calls.items():
+            for M in (1, 63, 8192):
+                x = x_all[-M:].clone()
+                ref = plain(x)
+                exact = exact_of(x)
+                err_plain = (ref.double() - exact).abs().max().item()
+                for path in kernels.PRODUCT_PATHS:
+                    out = kern(x, path=path)
+                    torch.testing.assert_close(out, ref, atol=KERNEL_TOL,
+                                               rtol=KERNEL_TOL)
+                    err = (out.double() - exact).abs().max().item()
+                    ratios[(name, path, M)] = r = (
+                        err / err_plain if err_plain else
+                        (0.0 if err == 0 else float("inf")))
+                    if r > 2 and path in ("f64", taken):
+                        raise AssertionError(
+                            f"{name} n={n} M={M} path {path}: error vs "
+                            f"float64 {err:.3e} exceeds twice plain's "
+                            f"{err_plain:.3e}")
+            for path in kernels.PRODUCT_PATHS:
+                times[(name, path)] = _device_ms(
+                    lambda: kern(x_all, path=path))
+        print(f"[geometry] n={n} ({smi}), the wrappers take {taken}; error "
+              f"vs float64 over plain's at rows 1/63/8192: " + "; ".join(
+                  f"{name} {path} " + "/".join(
+                      f"{ratios[(name, path, M)]:.2f}" for M in (1, 63, 8192))
+                  for name in calls for path in kernels.PRODUCT_PATHS)
+              + "; back to back at 8192 rows: " + ", ".join(
+                  f"{name} {path} {times[(name, path)]:.4f} ms"
+                  for name in calls for path in kernels.PRODUCT_PATHS))
+
+
+# The n and the generator seeds of --path-sweep: every n to the codec's
+# default, SWEEP_SEEDS rows from torch's generator on the card at each, and
+# at the n the cuda tests and this script check the numpy rows they use
+# (`seeded_rows`: seed n, the tests' own, 1 and 2).
+SWEEP_NS = range(1, 1025)
+SWEEP_SEEDS = range(8)
+SWEEP_ROWS = (1, 63, 64, 65, 646, 1292, 8192)
+
+
+def _suffix_max(err: torch.Tensor) -> torch.Tensor:
+    """[M] per-row errors → for each m, the largest error of rows m..M-1."""
+    return torch.flip(torch.cummax(torch.flip(err, (0,)), 0).values, (0,))
+
+
+def path_ratios(n: int, data: dict) -> dict:
+    """For each of mdct_rows and imdct_window and each product path, the
+    (error against float64) / (plain version's error) at each row count
+    of SWEEP_ROWS, taken as the last M rows of `data` (as the cuda tests
+    and `geometry_kernel_checks` take them): {(kernel, path): {M: ratio}}."""
+    tables = get_codec_tables(n, 2 * n, SAMPLE_RATE, "cuda")
+    t64, w64 = tables.cos_table.double(), tables.window.double()
+    win, dec = data["mdct_rows"], data["imdct_window"]
+    calls = {
+        "mdct_rows": (
+            lambda x, **kw: mdct_rows(x, tables.cos_table, tables.norm, **kw),
+            lambda x: mdct_rows_reference(x, tables.cos_table, tables.norm),
+            lambda x: (x.double() @ t64.T) * tables.norm_value, win),
+        "imdct_window": (
+            lambda x, **kw: imdct_window(x, tables.cos_table, tables.window,
+                                         tables.norm_value, **kw),
+            lambda x: imdct_window_reference(x, tables.cos_table,
+                                             tables.window, tables.norm_value),
+            lambda x: ((x.double() @ t64) * tables.norm_value) * w64, dec),
+    }
+    out = {}
+    for name, (kern, plain, exact_of, x) in calls.items():
+        exact = exact_of(x)
+        plain_err = {}
+        for M in SWEEP_ROWS:
+            ref = plain(x[-M:].contiguous()).double()
+            plain_err[M] = (ref - exact[-M:]).abs().max().item()
+        for path in kernels.PRODUCT_PATHS:
+            rows_err = _suffix_max((kern(x, path=path).double() - exact)
+                                   .abs().amax(1)).cpu()
+            out[(name, path)] = ratio = {}
+            for M in SWEEP_ROWS:
+                err = rows_err[len(x) - M].item()
+                ratio[M] = err / plain_err[M] if plain_err[M] else \
+                    (0.0 if err == 0 else float("inf"))
+    return out
+
+
+def path_sweep(smi: str, out_path: str | None) -> None:
+    """The measurement behind kernels._F64_MAX_N: at every n of SWEEP_NS
+    and every row count of SWEEP_ROWS, each product path's error ratio
+    (`path_ratios`) on every seed's rows.  Prints, for each path and row
+    count, the n at which it passed twice plain's error on some seed and
+    on how many; the largest n at which the tile product did (the cut)
+    beside the wrappers' cut; and the worst ratio of each path at a few n.
+    Writes every ratio to `out_path` as JSON."""
+    exact_ns = set(TEST_GEOMETRY_NS) | set(PATH_NS) | {
+        hop for _name, hop, _rate in GEOMETRIES}
+    per_n = {}
+    for n in SWEEP_NS:
+        tables = get_codec_tables(n, 2 * n, SAMPLE_RATE, "cuda")
+        gen = torch.Generator(device="cuda")
+        datas = []
+        for seed in SWEEP_SEEDS:
+            gen.manual_seed(seed)
+            datas.append((f"torch{seed}", {
+                "mdct_rows": torch.randn((8192, 2 * n), generator=gen,
+                                         device="cuda") * 0.1 * tables.window,
+                "imdct_window": torch.randn((8192, n), generator=gen,
+                                            device="cuda") * 0.1}))
+        if n in exact_ns:
+            for seed in sorted({n, 1, 2}):
+                datas.append((f"numpy{seed}", {
+                    "mdct_rows": seeded_rows(8192, 2 * n, seed, tables.window),
+                    "imdct_window": seeded_rows(8192, n, seed)}))
+        per_n[n] = cell = {}
+        for label, data in datas:
+            for (name, path), ratio in path_ratios(n, data).items():
+                for M, r in ratio.items():
+                    cell.setdefault(f"{name} {path}", {}).setdefault(
+                        M, {})[label] = r
+    cut = max((n for n in SWEEP_NS for name in ("mdct_rows", "imdct_window")
+               for M in SWEEP_ROWS
+               if max(per_n[n][f"{name} tiles"][M].values()) > 2), default=0)
+    print(f"[path sweep] ({smi}) the largest n at which the tile product "
+          f"passed twice plain's error: {cut}; the wrappers take the f64 "
+          f"path at n <= {kernels._F64_MAX_N}")
+    for path in kernels.PRODUCT_PATHS:
+        for M in SWEEP_ROWS:
+            broken = {n: sum(r > 2 for name in ("mdct_rows", "imdct_window")
+                             for r in per_n[n][f"{name} {path}"][M].values())
+                      for n in SWEEP_NS}
+            broken = {n: k for n, k in broken.items() if k}
+            print(f"[path sweep] ({smi}) {path}, M={M}: passes twice plain's "
+                  f"error at {len(broken)} of {len(SWEEP_NS)} n (largest "
+                  f"{max(broken, default=None)}); n: cases {broken}")
+    for n in (1, 2, 4, 8, 16, 32, 64, 128, 256, 257, 384, 441, 456, 457,
+              512, 735, 960, 1024):
+        if n in per_n:
+            print(f"[path sweep] n={n}, worst over seeds at M = "
+                  f"{'/'.join(map(str, SWEEP_ROWS))}: " + "; ".join(
+                      f"{key} " + "/".join(
+                          f"{max(per_n[n][key][M].values()):.2f}"
+                          for M in SWEEP_ROWS)
+                      for key in per_n[n]))
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(
+            {"card": smi, "rows": SWEEP_ROWS, "cut": cut, "ratios": per_n}))
+
+
+def phase_geometry(smi: str) -> dict:
+    """The frame geometries of GEOMETRIES through the card's kernels: each
+    round trip with its launches counted (`geometry_round_trip`), each
+    kernel against plain at every row count those paths launched it with
+    and at the timed rows (`geometry_kernel_checks`), the times at
+    GEOMETRY_TIMED (`geometry_times`) and both product paths at PATH_NS
+    (`product_paths`).  Returns {kernel: {n: launches, errors and
+    times}}, the f64 path's kernels (`F64_KERNELS`) at the hops that take
+    it."""
+    launches = {}
+    for _name, hop, rate in GEOMETRIES:
+        launches[hop] = geometry_round_trip(hop, rate, smi)
+    result = {name: {} for name in (*KERNEL_NAMES, *F64_KERNELS)}
+    for _name, hop, rate in GEOMETRIES:
+        rows = {name: GEOMETRY_LAUNCHED[name].get(hop, set())
+                | {GEOMETRY_TIMED_ROWS[name]} for name in KERNEL_NAMES}
+        if not all(GEOMETRY_LAUNCHED[name].get(hop) for name in KERNEL_NAMES):
+            raise AssertionError(f"hop {hop}: a kernel's launches were not "
+                                 f"recorded: {GEOMETRY_LAUNCHED}")
+        err = geometry_kernel_checks(hop, rate, rows)
+        times = (geometry_times(hop, rate, smi) if hop in GEOMETRY_TIMED
+                 else {})
+        for name in result:
+            wrapper = F64_KERNELS.get(name, name)
+            if name in F64_KERNELS and not launches[hop][name]:
+                continue
+            result[name][hop] = {"launches": launches[hop][name],
+                                 "rows_checked": sorted(rows[wrapper],
+                                                        reverse=True),
+                                 "max_abs_err": err[wrapper],
+                                 **times.get(wrapper, {})}
+    product_paths(smi)
+    return result
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2388,10 +2858,13 @@ def main(argv: list[str]) -> int:
         phase_build(strict=False)
         mdct_plans(smi)
         return 0
+    if argv[:1] == ["--path-sweep"] and len(argv) <= 2:
+        path_sweep(smi, argv[1] if len(argv) == 2 else None)
+        return 0
     if argv:
         print("usage: python3 chip_smoke.py [--encode-ab OTHER_CHECKOUT | "
               "--encode-kernels-ab | --kernel-ab OTHER_CHECKOUT | "
-              "--mdct-plans]", file=sys.stderr)
+              "--mdct-plans | --path-sweep [OUT.json]]", file=sys.stderr)
         return 2
     record_launch_rows()
     phase_warmup()
@@ -2424,6 +2897,7 @@ def main(argv: list[str]) -> int:
     phase_controller(short[0], short[1])
     phase_profile(encoded, out)
     phase_play_profile(many, smi)
+    geometry = phase_geometry(smi)
     for kernel in KERNEL_NAMES:
         unchecked = LAUNCHED_ROWS[kernel] - set(kern[kernel])
         if not LAUNCHED_ROWS[kernel] or unchecked:
@@ -2468,6 +2942,24 @@ def main(argv: list[str]) -> int:
         if device:
             entries[-1].update(zip(("device_ms", "device_plain_ms",
                                     "device_library_ms"), device))
+        entries[-1]["geometry"] = geometry[kernel]
+    for kernel, wrapper in F64_KERNELS.items():
+        at = geometry[kernel][F64_HOP]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "glc_tpu_torch/csrc/f64_rows.cuh",
+            "replaces": table[wrapper][1],
+            "launches": at["launches"],
+            "max_abs_err": max(g["max_abs_err"]
+                               for g in geometry[kernel].values()),
+            **{key: at[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "rows", "device_ms", "device_plain_ms",
+                "device_library_ms")},
+            "hop": F64_HOP,
+            "geometry": geometry[kernel],
+        })
     entries[0]["sharded"] = sharded
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

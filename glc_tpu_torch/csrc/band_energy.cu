@@ -45,6 +45,19 @@
 // band start 33 bins apart, so the lanes that sum them in step read 32
 // different shared-memory banks.
 //
+// Any n from 1 to 8192 (the hop size: the codec's default 1024, a 48 kHz
+// library's 20 ms hop 960, 44.1 kHz's 10 ms 441).  Where n % 4 != 0 a
+// row starts off a 16-byte boundary: the warp places it in its buffer at
+// the same offset modulo 16 bytes, copies the whole 16-byte groups with
+// 16-byte cp.async and the few floats before and after them with 4-byte
+// ones.  Where four warps' row buffers do not fit a block (n > 6400), a
+// block has two warps (chosen by n on the host); a plan of more than 192
+// items (the codec's tables above n ~ 5800) takes the build with room for
+// 320.  Neither
+// changes a row's arithmetic: a row's bits depend on the row and the plan
+// alone, at any n.  At n = 1024 the launch and the bits are those of the
+// kernel written for that n alone.
+//
 // Called through the plain C entry glc_band_energy below.
 
 #include <cuda_runtime.h>
@@ -55,12 +68,25 @@
 namespace {
 
 constexpr int LANES = 32;
-constexpr int WARPS = 4;           // rows in flight a block, one a warp
+constexpr int WARPS = 4;           // rows in flight a block, one a warp, at most
 constexpr int THREADS = WARPS * LANES;
 constexpr int STAGES = 2;          // row buffers a warp
-constexpr int MAX_ITEMS = 192;     // work items a plan may hold
-constexpr int PLAN_CAP = 1024;     // ints a plan may hold
+constexpr int MAX_N = 8192;        // the widest row
+constexpr int SMEM_CAP = 200 * 1024;  // the row buffers' bytes a block, at most
 constexpr unsigned FULL = 0xffffffffu;
+
+// The two builds: the work items a plan may hold and the ints of its table
+// (ops/kernels.py::BAND_BUILDS); the codec's tables take the small one up
+// to n ~ 5800, the large one above, up to MAX_N.
+constexpr int SMALL_ITEMS = 192, SMALL_PLAN = 1024;
+constexpr int LARGE_ITEMS = 320, LARGE_PLAN = 1280;
+
+// The floats between a warp's row buffers: n where rows start 16-byte
+// aligned, else room for n floats placed at any offset modulo 4 floats,
+// rounded up to keep every buffer 16-byte aligned.
+__host__ __device__ __forceinline__ int row_stride(int n) {
+  return n % 4 == 0 ? n : (n + 3 + 3) / 4 * 4;
+}
 
 // One compensated add: s + x == t + e exactly (TwoSum); e is added to err
 // and s becomes t.
@@ -72,17 +98,38 @@ __device__ __forceinline__ void two_sum_add(float& s, float& err, float x) {
   s = t;
 }
 
-// The warp's copy of one row (n floats, 16-byte aligned) into shared memory:
-// 16 bytes a lane a copy, neighbouring lanes on neighbouring addresses.
-__device__ __forceinline__ void copy_row_async(float* dst, const float* src,
-                                               int n, int lane) {
-  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  for (int q = lane; q < n / 4; q += LANES) {
+// The warp's copy of one row (n floats from src) into its buffer dst (16-byte
+// aligned, row_stride(n) floats): 16 bytes a lane a copy, neighbouring lanes
+// on neighbouring addresses.  Returns where the row starts in the buffer:
+// dst itself for a 16-byte aligned src, else dst + (src's offset in floats
+// modulo 4), so that the row's 16-byte groups land on 16-byte boundaries;
+// the floats before the first group and after the last are copied 4 bytes
+// at a time.
+__device__ __forceinline__ float* copy_row_async(float* dst, const float* src,
+                                                 int n, int lane) {
+  const int shift = static_cast<int>((reinterpret_cast<uintptr_t>(src) / 4) % 4);
+  float* row = dst + shift;
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  const int head = min((4 - shift) % 4, n);  // floats before the first group
+  const int groups = (n - head) / 4;
+  for (int q = lane; q < groups; q += LANES) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(base + 16u * q), "l"(src + 4 * q) : "memory");
+                 :: "r"(base + 4u * head + 16u * q), "l"(src + head + 4 * q)
+                 : "memory");
   }
+  if (head + 4 * groups < n || head > 0) {  // a row off a 16-byte boundary
+    const int tail = head + 4 * groups;
+    const int k = lane < head ? lane : tail + lane - head;
+    if (lane < head || k < n) {  // n - tail <= 3 and head <= 3: one each
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(base + 4u * k), "l"(src + k) : "memory");
+    }
+  }
+  return row;
 }
 
+// A block of blockDim.x / 32 warps (4, or 2 for rows too wide for four).
+template <int MAX_ITEMS, int PLAN_CAP>
 __global__ void __launch_bounds__(THREADS)
 band_energy_kernel(const float* __restrict__ coeffs,  // [M, n]
                    const int* __restrict__ plan_g,    // the plan, plan_len ints
@@ -90,9 +137,11 @@ band_energy_kernel(const float* __restrict__ coeffs,  // [M, n]
                    int M, int n, int bands, int items, int plan_len) {
   __shared__ int plan[PLAN_CAP];
   __shared__ float2 pairs_of[WARPS][MAX_ITEMS];  // each item's (s, e)
-  extern __shared__ float4 rows4[];              // [WARPS][STAGES][n]
+  extern __shared__ float4 rows4[];  // [warps][STAGES][row_stride(n)]
+  const int warps = blockDim.x / LANES;
+  const int stride_n = row_stride(n);
 
-  for (int i = threadIdx.x; i < plan_len; i += THREADS) plan[i] = plan_g[i];
+  for (int i = threadIdx.x; i < plan_len; i += blockDim.x) plan[i] = plan_g[i];
   __syncthreads();
   // the plan's layout (ops/kernels.py::band_plan)
   const int* item_lo = plan;
@@ -108,24 +157,25 @@ band_energy_kernel(const float* __restrict__ coeffs,  // [M, n]
   const int lane = threadIdx.x % LANES;
   float2* pairs = pairs_of[warp];
   float* buf = reinterpret_cast<float*>(rows4) +
-               static_cast<size_t>(warp) * STAGES * n;
-  const int stride = gridDim.x * WARPS;
+               static_cast<size_t>(warp) * STAGES * stride_n;
+  const int stride = gridDim.x * warps;
   const int first = lane_first[lane], last = lane_first[lane + 1];
   const int bins = lane_bins[lane];
 
-  int m = blockIdx.x * WARPS + warp;
-  if (m < M) copy_row_async(buf, coeffs + static_cast<size_t>(m) * n, n, lane);
+  int m = blockIdx.x * warps + warp;
+  float* row = buf;  // where this row starts in its buffer (copy_row_async)
+  if (m < M) row = copy_row_async(buf, coeffs + static_cast<size_t>(m) * n, n, lane);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (int it = 0; m < M; ++it, m += stride) {
     const int next = m + stride;
+    float* next_row = buf + ((it + 1) % STAGES) * stride_n;
     if (next < M) {
-      copy_row_async(buf + ((it + 1) % STAGES) * n,
-                     coeffs + static_cast<size_t>(next) * n, n, lane);
+      next_row = copy_row_async(next_row, coeffs + static_cast<size_t>(next) * n,
+                                n, lane);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this row's copy
     __syncwarp();
-    const float* row = buf + (it % STAGES) * n;
 
     // 1. the lane's items, one bin a step, the items back to back
     int p = first, item = 0, k = 0, end = 0;
@@ -181,57 +231,84 @@ band_energy_kernel(const float* __restrict__ coeffs,  // [M, n]
       dst[b] = v;
     }
     __syncwarp();  // the row buffer and the pairs are free again
+    row = next_row;
   }
 }
 
 constexpr int MAX_DEVICES = 64;
-int g_grid_cap[MAX_DEVICES];   // blocks the card holds at once, by device
-int g_grid_cap_n[MAX_DEVICES];  // the n that g_grid_cap was found for
 
-}  // namespace
+// A build's launch geometry on a device, found for one (n, warps).
+struct Launch {
+  int grid_cap = 0;  // blocks the card holds at once
+  int n = 0;         // the n it was found for
+};
+Launch g_small[MAX_DEVICES], g_large[MAX_DEVICES];
 
-// Launches the kernel on `stream` (a cudaStream_t) and returns a cudaError_t
-// as an int: 0 on success.  coeffs, plan and out are device pointers to
-// contiguous arrays, coeffs [M, n] 16-byte aligned with n a multiple of 4,
-// plan the int32 table of ops/kernels.py::band_plan (plan_len ints: `items`
-// work items, each of >= 1 bin within [0, n), lanes summing them, `bands`
-// bands with their item spans and bin ranges), out [M, bands].
-extern "C" int glc_band_energy(const float* coeffs, const int* plan, float* out,
-                               int M, int n, int bands, int items, int plan_len,
-                               void* stream) {
-  const size_t smem = static_cast<size_t>(WARPS) * STAGES * n * sizeof(float);
-  if (M < 0 || n <= 0 || n % 4 != 0 || bands <= 0 || items < 0 ||
-      items > MAX_ITEMS || plan_len > PLAN_CAP ||
-      plan_len != 3 * items + 2 * LANES + 1 + 3 * bands + 1 ||
-      smem > 200 * 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (M == 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-  if (g_grid_cap_n[dev] != n) {
+// Launches one build (see glc_band_energy); `cached` its geometry on this
+// device.
+template <int MAX_ITEMS, int PLAN_CAP>
+int launch(Launch& cached, int dev, const float* coeffs, const int* plan,
+           float* out, int M, int n, int bands, int items, int plan_len,
+           cudaStream_t stream) {
+  const auto kernel = band_energy_kernel<MAX_ITEMS, PLAN_CAP>;
+  const size_t row_bytes =
+      static_cast<size_t>(STAGES) * row_stride(n) * sizeof(float);
+  const int warps = WARPS * row_bytes <= SMEM_CAP ? WARPS : WARPS / 2;
+  const size_t smem = warps * row_bytes;
+  if (cached.n != n) {
     int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(band_energy_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, band_energy_kernel, THREADS, smem);
+          &per_sm, kernel, warps * LANES, smem);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    g_grid_cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
-    g_grid_cap_n[dev] = n;
+    cached.grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+    cached.n = n;
   }
-  const int wanted = (M + WARPS - 1) / WARPS;
-  const int grid = wanted < g_grid_cap[dev] ? wanted : g_grid_cap[dev];
-  band_energy_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      coeffs, plan, out, M, n, bands, items, plan_len);
+  const int wanted = (M + warps - 1) / warps;
+  const int grid = wanted < cached.grid_cap ? wanted : cached.grid_cap;
+  kernel<<<grid, warps * LANES, smem, stream>>>(coeffs, plan, out, M, n, bands,
+                                                items, plan_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` (a cudaStream_t) and returns a cudaError_t
+// as an int: 0 on success, cudaErrorInvalidValue for n outside [1, 8192]
+// or a plan that neither build holds.  coeffs, plan and out are device
+// pointers to contiguous arrays, coeffs [M, n] 16-byte aligned, plan the
+// int32 table of ops/kernels.py::band_plan (plan_len ints: `items` work
+// items, each of >= 1 bin within [0, n), lanes summing them, `bands` bands
+// with their item spans and bin ranges), out [M, bands].  The small build
+// takes a plan that fits it, the large one any other; a block has four
+// warps where their row buffers fit SMEM_CAP, else two.
+extern "C" int glc_band_energy(const float* coeffs, const int* plan, float* out,
+                               int M, int n, int bands, int items, int plan_len,
+                               void* stream) {
+  if (M < 0 || n < 1 || n > MAX_N || bands <= 0 || items < 0 ||
+      items > LARGE_ITEMS || plan_len > LARGE_PLAN ||
+      plan_len != 3 * items + 2 * LANES + 1 + 3 * bands + 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (items <= SMALL_ITEMS && plan_len <= SMALL_PLAN) {
+    return launch<SMALL_ITEMS, SMALL_PLAN>(g_small[dev], dev, coeffs, plan, out,
+                                           M, n, bands, items, plan_len, s);
+  }
+  return launch<LARGE_ITEMS, LARGE_PLAN>(g_large[dev], dev, coeffs, plan, out,
+                                         M, n, bands, items, plan_len, s);
 }
 
 // What the build made of the kernel: info[0..4] = registers a thread, local
@@ -241,7 +318,8 @@ extern "C" int glc_band_energy(const float* coeffs, const int* plan, float* out,
 // cudaError_t as an int.
 extern "C" int glc_band_energy_info(int* info) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, band_energy_kernel);
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, band_energy_kernel<SMALL_ITEMS, SMALL_PLAN>);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);

@@ -18,8 +18,8 @@
 // roundings (below), no split-k, no reduction across tiles, the ragged
 // edge masked.
 //
-// The arithmetic of an element, the same in every plan: 64 k-tiles of 32
-// (2n = 2048); in each, the 3xTF32 products of tf32x3.cuh (win split hi/lo
+// The arithmetic of an element, the same in every plan: ktiles_of(n)
+// k-tiles of 32 (64 at 2n = 2048); in each, the 3xTF32 products of tf32x3.cuh (win split hi/lo
 // with cvt.rna and a mask, the table's split read from memory), the 8
 // small-term wgmma k-steps first and the 4 large ones last, into an
 // accumulator that starts from the last k-tile's rounding error; the
@@ -61,18 +61,29 @@
 // spill bytes, 64 B static shared memory and 4 stages of dynamic (197632
 // B at 128 x 128; kernels.mdct_smem_bytes for each shape).
 //
-// Shapes: win [M, 2n] f32 row-major (contiguous rows), the table split into
-// table_hi / table_lo, each [n, 2n] f32 (cos_table itself: it is already
-// K-major, the layout tf32 wgmma takes for its shared-memory operand), norm
-// one f32 in device memory (read by the epilogue, so that the launch needs
-// no host copy of it), out [M, n] f32.  n a multiple of 128 (the codec's
-// 1024).  Pointers 16-byte aligned.
+// Shapes: win [M, 2n] f32 row-major, the table split into table_hi /
+// table_lo, each [n, 2n] f32 (cos_table itself: it is already K-major, the
+// layout tf32 wgmma takes for its shared-memory operand), each with rows
+// of pitch_of(2n) floats (tf32x3.cuh: 2n itself for an even n), norm one
+// f32 in device memory (read by the epilogue, so that the launch needs no
+// host copy of it), out [M, n] f32 contiguous.  Any 1 <= n <= 8192 (the
+// hop size: the codec's default 1024, a 48 kHz library's 20 ms hop 960,
+// 44.1 kHz's 10 ms 441).  Pointers 16-byte aligned.
+//
+// Any n, with a row's bits the same in every plan: a unit's columns past
+// n (units_n is a ceiling) read the table's rows past n as zeros and are
+// not stored; the k-tail past 2n reads zeros in win and the table; and
+// the k-loop is padded to an even count (ktiles_of) in every plan, since
+// the narrow consumers take k-tiles in pairs: each added k-tile adds exact
+// zero products.  At n = 1024 (64 k-tiles, every unit full) the launch and
+// the bits are those of the kernel written for that n alone.
 //
 // Called through the plain C entry glc_mdct_rows below.
 
 #include <climits>
 #include <type_traits>
 
+#include "f64_rows.cuh"
 #include "tf32x3.cuh"
 
 using namespace tf32x3;
@@ -98,6 +109,12 @@ struct Unit {
   static_assert(B_BYTES % 1024 == 0 && (COLS * BK * 4) % 1024 == 0,
                 "every tile starts on a 128-byte swizzle atom");
 };
+
+// The k-tiles of 32 every plan walks for width 2n: ceil(2n / 32), rounded
+// up to even (the narrow consumers take them in pairs).
+__host__ __device__ __forceinline__ int ktiles_of(int n) {
+  return ((2 * n + BK - 1) / BK + 1) / 2 * 2;
+}
 
 constexpr int ORDER_0 = 1;  // warpgroup 0 has issued its k-tile
 constexpr int ORDER_1 = 2;  // warpgroup 1 has issued its k-tile
@@ -198,7 +215,7 @@ __device__ __forceinline__ void store_tile_of(float (&total)[R], const float (&p
                                               int row, int col0) {
 #pragma unroll
   for (int i = 0; i < R; ++i) total[i] = __fmul_rn(__fadd_rn(total[i], part[i]), s_norm);
-  store_fragment(total, out, M, n, row, col0);
+  store_fragment_ragged(total, out, M, n, row, col0);
 }
 
 // The consumers of a 128 x 128 unit: warpgroup wg takes rows 64 wg.. of
@@ -212,7 +229,7 @@ __device__ __forceinline__ void consume_wide(const Ring& ring, float s_norm,
   const int warp = threadIdx.x / 32;
   const int wg = warp / 4;
   const int r = 64 * wg + (warp % 4) * 16 + (threadIdx.x % 32) / 4;
-  const int ktiles = (2 * n) / BK;
+  const int ktiles = ktiles_of(n);
   float total[64], part[64];
   float a_raw[BK / 8][4];  // the next k-tile's A, read while wgmma run
   int it = 0;              // the k-tiles consumed so far, over all units
@@ -259,7 +276,7 @@ __device__ __forceinline__ void consume_narrow(const Ring& ring, float s_norm,
   const int warp = threadIdx.x / 32;
   const int wg = warp / 4;
   const int r = (warp % 4) * 16 + (threadIdx.x % 32) / 4;
-  const int ktiles = (2 * n) / BK;  // even: n is a multiple of 128
+  const int ktiles = ktiles_of(n);  // even
   const uint32_t b_off = COLS * wg * BK * 4;  // its rows of the table tiles
   float total[R], part[R];
   uint32_t a_hi[2][BK / 8][4], a_lo[2][BK / 8][4];
@@ -316,7 +333,7 @@ mdct_rows_kernel(const __grid_constant__ CUtensorMap win_map,  // [M, 2n]
   const uint32_t pad = (1024 - (smem_addr(smem) & 1023)) & 1023;
   const Ring ring{smem_addr(smem) + pad, smem + pad, full, empty};
   const int warp = threadIdx.x / 32;
-  const int ktiles = (2 * n) / BK;
+  const int ktiles = ktiles_of(n);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < U::RING; ++s) {
@@ -363,8 +380,7 @@ int launch(const float* win, const float* table_hi, const float* table_lo,
            cudaStream_t stream) {
   using U = Unit<ROWS, COLS>;
   static bool raised[64] = {};  // the shared-memory limit, once per device
-  if (n % U::BLOCK_COLS != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int units_n = n / U::BLOCK_COLS;
+  const int units_n = (n + U::BLOCK_COLS - 1) / U::BLOCK_COLS;
   const long long units =
       static_cast<long long>((M + ROWS - 1) / ROWS) * units_n;
   if (units > INT_MAX || grid < 1 || grid > units) {
@@ -416,6 +432,14 @@ struct Launch {
   }
 };
 
+// The f64 path's epilogue: acc * norm in f64, rounded once.
+struct Scale {
+  const float* norm;
+  __device__ float operator()(double total, int) const {
+    return __double2float_rn(__dmul_rn(total, *norm));
+  }
+};
+
 template <int ROWS, int COLS>
 struct Info {
   static int run(int* info) { return info_of<ROWS, COLS>(info); }
@@ -425,14 +449,15 @@ struct Info {
 
 // Launches the plan (rows, cols, grid) on `stream` (a cudaStream_t) and
 // returns a cudaError_t as an int: 0 on success, cudaErrorInvalidValue for
-// a plan that is not built or a grid outside [1, units].  Pointers must be
-// device pointers, 16-byte aligned, to contiguous f32 arrays of the shapes
-// above; table_hi / table_lo are the tf32 split of the cos table.
+// n outside [1, 8192], a plan that is not built or a grid outside [1,
+// units].  Pointers must be device pointers, 16-byte aligned, to f32
+// arrays of the shapes and pitches above; table_hi / table_lo are the tf32
+// split of the cos table.
 extern "C" int glc_mdct_rows(const float* win, const float* table_hi,
                              const float* table_lo, const float* norm,
                              float* out, int M, int n, int rows, int cols,
                              int grid, void* stream) {
-  if (M < 0 || n <= 0 || n % 128 != 0) {
+  if (M < 0 || n < 1 || n > MAX_N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
@@ -445,6 +470,23 @@ extern "C" int glc_mdct_rows(const float* win, const float* table_hi,
 // block, pipeline stages.  Returns a cudaError_t as an int.
 extern "C" int glc_mdct_rows_plan_info(int rows, int cols, int* info) {
   return dispatch<Info>(rows, cols, info);
+}
+
+// The f64 path (f64_rows.cuh; the wrapper takes it at the n where the tile
+// product fails its error bar): out[m, k] = (win[m] . cos_table[k]) * *norm
+// in f64, rounded once to f32.  win [M, 2n] contiguous, table_t [2n, n]
+// the transposed cos table in f32 (not its split: a warp's threads, on
+// neighbouring k, read neighbouring floats), norm one f32 in device memory,
+// out [M, n].  Any 1 <= n <= 8192; returns a cudaError_t as an int.
+extern "C" int glc_mdct_rows_f64(const float* win, const float* table_t,
+                                 const float* norm, float* out, int M, int n,
+                                 void* stream) {
+  if (M < 0 || n < 1 || n > MAX_N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  return f64rows::launch(win, 2 * n, table_t, 1, n, out, M, n, 2 * n,
+                      Scale{norm}, static_cast<cudaStream_t>(stream));
 }
 
 // The default large-M plan's (128, 128), as the other kernels report theirs.

@@ -44,6 +44,13 @@
 //   * Rows never meet: no split-k, no reduction across blocks, rows past M
 //     arrive as zeros.  A row's result depends on that row alone, whatever
 //     M is and wherever the row sits in its tile.
+//   * Any K and any N from 1 to 8192 (n of the codec, any hop size): TMA
+//     reads the parts of a box past the last row or column as zeros, so
+//     the k-tail and the ragged column edge add exact zero products, and
+//     store_fragment_ragged drops the columns past the output's width.  A TMA
+//     row stride is a multiple of 16 bytes: the wrappers hand over rows
+//     of pitch_of(K) floats (the tables split once at that pitch, zero
+//     padded; a row input of K % 4 != 0 copied once a launch).
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a (no fast math, no
 // -lcuda: the TMA map encoder is reached through the runtime).
@@ -65,6 +72,7 @@ constexpr int THREADS = CONSUMER_WARPS * 32 + 128;  // + the producer's
 constexpr uint32_t TILE_BYTES = BM * BK * 4;        // 16 KB
 constexpr uint32_t STAGE_BYTES = 3 * TILE_BYTES;    // a, b_hi, b_lo
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+constexpr int MAX_N = 8192;  // the largest n (hop size) the kernels take
 static_assert(BN == BM, "the b tiles have the a tile's size");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -352,7 +360,9 @@ __device__ __forceinline__ bool tile_product(const CUtensorMap* a_map,
 // rows r and r + 8, columns col0 + 8j + 2q + {0, 1} (the layout above),
 // rows past M dropped.  Lanes q and q ^ 1 swap halves: the even lane
 // stores four adjacent columns of row r, the odd lane the same columns of
-// row r + 8; each thread stores 16 bytes of one row.
+// row r + 8; each thread stores 16 bytes of one row.  Every column of the
+// tile must lie below ld, and ld be a multiple of 4 (store_fragment_ragged
+// takes any).
 template <int R>
 __device__ __forceinline__ void store_fragment(const float (&v)[R], float* out,
                                                int M, int ld, int r, int col0) {
@@ -369,6 +379,40 @@ __device__ __forceinline__ void store_fragment(const float (&v)[R], float* out,
     if (row < M) {
       *reinterpret_cast<float4*>(dst + 8 * j) =
           odd ? make_float4(t0, t1, v2, v3) : make_float4(v0, v1, t0, t1);
+    }
+  }
+}
+
+// store_fragment into a contiguous out [M, ld] of any width: columns past
+// ld are dropped too, and the 16 bytes are stored one float at a time
+// where they reach past ld or the rows are not 16-byte aligned (ld no
+// multiple of 4).
+template <int R>
+__device__ __forceinline__ void store_fragment_ragged(const float (&v)[R],
+                                                      float* out, int M, int ld,
+                                                      int r, int col0) {
+  const int q = threadIdx.x % 4;
+  const bool odd = q & 1;
+  const int row = r + (odd ? 8 : 0);
+  const int col = col0 + 4 * (q / 2);
+  float* dst = out + static_cast<size_t>(row) * ld + col;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const float v0 = v[4 * j + 0], v1 = v[4 * j + 1];
+    const float v2 = v[4 * j + 2], v3 = v[4 * j + 3];
+    const float t0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+    const float t1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+    if (row < M) {
+      const float4 x = odd ? make_float4(t0, t1, v2, v3) : make_float4(v0, v1, t0, t1);
+      const int c = col + 8 * j;  // the first of the four columns
+      if (ld % 4 == 0 && c + 4 <= ld) {
+        *reinterpret_cast<float4*>(dst + 8 * j) = x;
+      } else {
+        if (c < ld) dst[8 * j] = x.x;
+        if (c + 1 < ld) dst[8 * j + 1] = x.y;
+        if (c + 2 < ld) dst[8 * j + 2] = x.z;
+        if (c + 3 < ld) dst[8 * j + 3] = x.w;
+      }
     }
   }
 }
@@ -417,15 +461,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a row-major [rows, cols] f32 array in boxes of [box_rows, 32],
-// with the 128-byte swizzle; boxes past the last row read zeros.
+// A row's pitch in floats in the arrays the maps read: its width rounded up
+// to a multiple of 4, since a TMA map's row stride must be a multiple of
+// 16 bytes.  The wrappers (ops/kernels.py) lay out what they hand over so.
+inline int pitch_of(int cols) { return (cols + 3) / 4 * 4; }
+
+// A map of a row-major [rows, cols] f32 array whose rows lie pitch_of(cols)
+// floats apart, in boxes of [box_rows, 32], with the 128-byte swizzle;
+// whatever part of a box lies past the last row or column (the ragged
+// edges, and the k-tail past K) reads zeros.
 inline bool make_map(CUtensorMap* map, const float* base, int rows, int cols,
                      int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch_of(cols)) *
+                                 sizeof(float)};
   const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),

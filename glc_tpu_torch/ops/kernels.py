@@ -15,10 +15,21 @@ build.
   any row count, so the encode's bytes do not depend on how the frames are
   cut, as the JAX package's do not.
 
-The two products are 3xTF32 `wgmma` fed by TMA (``csrc/tf32x3.cuh``); they
-read their table as its TF32 split (`split_tf32`), made once per table
-tensor and cached: `table_split` the transposed table's for `imdct_window`,
-`cos_split` the table's own for `mdct_rows`.  `mdct_rows` launches the
+Every kernel takes any n (the hop size) from 1 to `MAX_N`: the codec's
+default 1024, a 48 kHz library's 20 ms hop 960, 44.1 kHz's 10 ms 441 and
+the rest; the wrappers raise ValueError above it.  The two products are
+3xTF32 `wgmma` fed by TMA (``csrc/tf32x3.cuh``); they read their table as
+its TF32 split (`split_tf32`), made once per table tensor and cached:
+`table_split` the transposed table's for `imdct_window`, `cos_split` the
+table's own for `mdct_rows`.  A TMA map's rows lie a multiple of 16 bytes
+apart, so each operand they read by TMA has rows of `row_pitch` floats:
+the splits are made at that pitch (zero padded), and a row input whose
+width is no multiple of 4 is copied once a launch (`padded_rows`).  At
+the n where the tile product's error passes twice the plain version's on
+some rows (`product_path`), the two take their f64 path instead
+(``csrc/f64_rows.cuh``: products and sums in f64 on the CUDA cores, one
+rounding to f32), which reads the f32 table (`table_t` the transposed one
+for `mdct_rows`).  `mdct_rows` launches the
 tile plan `mdct_rows_plan` picks for its row count (`MdctPlan`: a tile
 shape of `MDCT_TILES` and a persistent grid); every plan gives the same
 bits.  `band_energy` reads its work plan, `band_plan` (each band's bins cut
@@ -33,7 +44,8 @@ under ``csrc/`` and of the nvcc flags, so an edit of either rebuilds it.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it always launches its kernel or raises.  ``<wrapper>.launches`` counts
-each kernel's launches, ``<split>.splits`` the table splits.
+each wrapper's launches, ``<wrapper>.f64_launches`` those of them that
+took the f64 kernel, ``<split>.splits`` the table splits.
 """
 
 from __future__ import annotations
@@ -61,6 +73,14 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 KERNELS = ("imdct_window", "mdct_rows", "band_energy")
+MAX_N = 8192  # the largest n (hop size) each kernel takes (csrc/*.cu)
+# The largest n at which imdct_window and mdct_rows take their f64 path
+# (csrc/f64_rows.cuh) instead of the 3xTF32 tile product: the largest n at
+# which the tile product's error against float64 passed twice the plain
+# version's, on some seed's rows at some row count, in
+# `python3 chip_smoke.py --path-sweep` (every n to 1024; H100)
+_F64_MAX_N = 456
+PRODUCT_PATHS = ("tiles", "f64")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -158,6 +178,17 @@ def load_library() -> ctypes.CDLL:
             i32, i32,                 # M, n
             i32, i32, i32, ptr,       # the plan's rows, cols, grid; stream
         ]
+        lib.glc_imdct_window_f64.argtypes = [
+            ptr, ptr, ptr, ptr,     # coeffs, cos_table, window, out
+            i32, i32, c.c_float,    # B, n, norm
+            ptr,                    # stream
+        ]
+        lib.glc_mdct_rows_f64.argtypes = [
+            ptr, ptr, ptr, ptr,     # win, table_t, norm, out
+            i32, i32, ptr,          # M, n, stream
+        ]
+        for name in ("glc_imdct_window_f64", "glc_mdct_rows_f64"):
+            getattr(lib, name).restype = i32
         lib.glc_mdct_rows_plan_info.restype = i32
         lib.glc_mdct_rows_plan_info.argtypes = [i32, i32, c.POINTER(i32)]
         lib.glc_band_energy.argtypes = [
@@ -241,6 +272,7 @@ def _cached(cache: WeakTensorKeyDictionary, key: torch.Tensor, make):
 
 _SPLITS = WeakTensorKeyDictionary()
 _COS_SPLITS = WeakTensorKeyDictionary()
+_TRANSPOSED = WeakTensorKeyDictionary()
 _PLANS = WeakTensorKeyDictionary()
 _SCALARS = WeakTensorKeyDictionary()
 
@@ -255,12 +287,32 @@ def host_scalar(x) -> float:
     return _cached(_SCALARS, x, lambda t: float(t))[0]
 
 
+def row_pitch(width: int) -> int:
+    """The floats between the rows of an operand a kernel reads by TMA:
+    `width` rounded up to a multiple of 4 (a map's row stride is a
+    multiple of 16 bytes; ``tf32x3.cuh::pitch_of``)."""
+    return -(-width // 4) * 4
+
+
+def padded_rows(x: torch.Tensor) -> torch.Tensor:
+    """x [R, w] laid out as a TMA-read kernel reads it: contiguous rows of
+    row_pitch(w) floats, zeros right of w (x itself where it is contiguous
+    and w a multiple of 4)."""
+    w = x.shape[1]
+    if w == row_pitch(w):
+        return x.contiguous()
+    out = x.new_zeros((x.shape[0], row_pitch(w)))
+    out[:, :w] = x
+    return out
+
+
 def table_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``split_tf32(cos_table.T)``, each half [2n, n] contiguous: the B
-    operand of `imdct_window`, made once per table tensor (and again only
-    if it is changed in place) and held as long as the table lives."""
+    """``split_tf32(cos_table.T)``, each half [2n, row_pitch(n)]
+    contiguous, zeros right of n: the B operand of `imdct_window`, made
+    once per table tensor (and again only if it is changed in place) and
+    held as long as the table lives."""
     split, made = _cached(_SPLITS, cos_table,
-                          lambda t: split_tf32(t.t().contiguous()))
+                          lambda t: split_tf32(padded_rows(t.t())))
     table_split.splits += made
     return split
 
@@ -269,16 +321,22 @@ table_split.splits = 0
 
 
 def cos_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``split_tf32(cos_table)``, each half [n, 2n] contiguous: the B
-    operand of `mdct_rows` (the table is K-major as it is), cached like
-    `table_split` but apart from it."""
+    """``split_tf32(cos_table)``, each half [n, row_pitch(2n)] contiguous,
+    zeros right of 2n: the B operand of `mdct_rows` (the table is K-major
+    as it is), cached like `table_split` but apart from it."""
     split, made = _cached(_COS_SPLITS, cos_table,
-                          lambda t: split_tf32(t.contiguous()))
+                          lambda t: split_tf32(padded_rows(t)))
     cos_split.splits += made
     return split
 
 
 cos_split.splits = 0
+
+
+def table_t(cos_table: torch.Tensor) -> torch.Tensor:
+    """``cos_table.T`` [2n, n] contiguous, in f32: the table of
+    `mdct_rows`' f64 path, cached like the splits."""
+    return _cached(_TRANSPOSED, cos_table, lambda t: t.t().contiguous())[0]
 
 
 def _ranges_of(band_mask: torch.Tensor) -> np.ndarray:
@@ -299,7 +357,10 @@ def _ranges_of(band_mask: torch.Tensor) -> np.ndarray:
 
 BAND_CHUNK = 33   # bins a work item of band_energy (csrc/band_energy.cu)
 BAND_LANES = 32   # the lanes of the warp that takes a row
-BAND_MAX_ITEMS = 192  # csrc/band_energy.cu's MAX_ITEMS
+# csrc/band_energy.cu's two builds, (work items, plan ints) each holds: the
+# kernel launches the first that holds the plan
+BAND_BUILDS = ((192, 1024), (320, 1280))
+BAND_MAX_ITEMS, BAND_PLAN_CAP = BAND_BUILDS[-1]
 
 
 class BandPlan(NamedTuple):
@@ -352,6 +413,9 @@ def _plan_of(band_mask: torch.Tensor) -> BandPlan:
     table = np.concatenate([items_np[:, 0], items_np[:, 1], order, lane_first,
                             lane_bins, band_first_np, ranges[:, 0],
                             ranges[:, 1]]).astype(np.int32)
+    if len(table) > BAND_PLAN_CAP:
+        raise ValueError(f"band_mask's plan needs {len(table)} ints, the "
+                         f"kernel holds {BAND_PLAN_CAP}")
     return BandPlan(ranges, items_np, band_first_np, order, lane_first,
                     lane_bins, torch.from_numpy(table).to(band_mask.device))
 
@@ -397,6 +461,13 @@ MDCT_TILES = tuple(MDCT_UNIT_US)
 MDCT_K_TILE = 32          # the k-tile of csrc/mdct_rows.cu
 
 
+def mdct_ktiles(n: int) -> int:
+    """The k-tiles every plan of mdct_rows walks on rows of width 2n:
+    ceil(2n / 32) rounded up to even (``mdct_rows.cu::ktiles_of``; 64 at
+    n = 1024)."""
+    return (-(-(2 * n) // MDCT_K_TILE) + 1) // 2 * 2
+
+
 def mdct_unit(rows: int, cols: int) -> Tuple[int, int]:
     """The (rows, cols) of a unit of the tile shape: one tile of 128 rows,
     or two of 64 side by side."""
@@ -404,9 +475,11 @@ def mdct_unit(rows: int, cols: int) -> Tuple[int, int]:
 
 
 def mdct_units(M: int, n: int, rows: int, cols: int) -> Tuple[int, int]:
-    """(units across n, units in all) of the tile shape on [M, n]."""
+    """(units across n, units in all) of the tile shape on [M, n]; the
+    last unit across n may reach past n (its columns there are computed on
+    zeros and not stored)."""
     unit_rows, unit_cols = mdct_unit(rows, cols)
-    units_n = n // unit_cols
+    units_n = -(-n // unit_cols)
     return units_n, -(-M // unit_rows) * units_n
 
 
@@ -426,19 +499,20 @@ def mdct_smem_bytes(rows: int, cols: int) -> int:
 def mdct_plan_us(M: int, n: int, rows: int, cols: int, sms: int) -> float:
     """The model's time (µs) for the tile shape on [M, n] with `sms` SMs:
     its rounds of units (`grid` = min(units, sms) blocks) times the unit's
-    time, scaled by the k-loop's depth."""
+    time, scaled by the k-loop's depth (`mdct_ktiles`, 64 at n = 1024)."""
     units = mdct_units(M, n, rows, cols)[1]
     rounds = -(-units // min(units, sms))
-    return rounds * MDCT_UNIT_US[rows, cols] * n / 1024
+    return rounds * MDCT_UNIT_US[rows, cols] * mdct_ktiles(n) / 64
 
 
 def mdct_rows_plan(M: int, n: int, sms: int) -> MdctPlan:
     """The plan `mdct_rows` launches on M rows of width 2n on a card of
     `sms` SMs: the tile shape that the model (`mdct_plan_us`) finds
     fastest, the earlier one in MDCT_TILES on a tie, and a grid of
-    min(units, sms) blocks."""
-    if M < 1 or n < 1 or n % 128 or sms < 1:
-        raise ValueError(f"no plan for M={M}, n={n}, sms={sms}")
+    min(units, sms) blocks.  Any n from 1 to `MAX_N`."""
+    if M < 1 or not 1 <= n <= MAX_N or sms < 1:
+        raise ValueError(f"no plan for M={M}, n={n}, sms={sms} (n within "
+                         f"[1, {MAX_N}])")
     rows, cols = min(MDCT_TILES, key=lambda t: mdct_plan_us(M, n, *t, sms))
     return MdctPlan(rows, cols, min(mdct_units(M, n, rows, cols)[1], sms))
 
@@ -458,10 +532,11 @@ def check_mdct_plan(plan: MdctPlan, M: int, n: int) -> None:
 
 def mdct_rows_tiles(M: int, n: int, plan: MdctPlan) -> np.ndarray:
     """The warpgroup tiles of `plan` on [M, n] as the kernel walks them:
-    int64 [T, 5] rows of (block, warpgroup, row0, col0, rows), each tile
-    64 rows (a 128-row tile's halves) by plan.cols columns from (row0,
-    col0); `rows` of them hold rows below M (0 for a half past M, which
-    the kernel computes on zeros and does not store)."""
+    int64 [T, 6] rows of (block, warpgroup, row0, col0, rows, cols), each
+    tile 64 rows (a 128-row tile's halves) by plan.cols columns from
+    (row0, col0); `rows` of them lie below M and `cols` below n (0 for a
+    tile past M or n, which the kernel computes on zeros and does not
+    store)."""
     rows, cols, grid = plan
     units_n, units = mdct_units(M, n, rows, cols)
     unit_rows, unit_cols = mdct_unit(rows, cols)
@@ -474,7 +549,8 @@ def mdct_rows_tiles(M: int, n: int, plan: MdctPlan) -> np.ndarray:
         r0 = row0 + (64 * wg if rows == 128 else 0)
         c0 = col0 + (0 if rows == 128 else cols * wg)
         out.append(np.stack([block, np.full_like(u, wg), r0, c0,
-                             np.clip(M - r0, 0, 64)], axis=1))
+                             np.clip(M - r0, 0, 64),
+                             np.clip(n - c0, 0, cols)], axis=1))
     return np.concatenate(out)
 
 
@@ -529,19 +605,44 @@ def _rows_of(name: str, x: torch.Tensor) -> Tuple[int, int]:
     return x.shape[0], x.shape[1]
 
 
+def _check_n(name: str, n: int) -> None:
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name} takes n (the hop size) from 1 to {MAX_N}, "
+                         f"got n={n}")
+
+
+def product_path(n: int) -> str:
+    """The product `imdct_window` and `mdct_rows` launch at n by default:
+    "f64" at the n where the 3xTF32 tile product's error can pass twice
+    the plain version's, else "tiles"."""
+    return "f64" if n <= _F64_MAX_N else "tiles"
+
+
+def _path_of(path: Optional[str], n: int) -> str:
+    if path is None:
+        return product_path(n)
+    if path not in PRODUCT_PATHS:
+        raise ValueError(f"path must be one of {PRODUCT_PATHS} or None, got "
+                         f"{path!r}")
+    return path
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
 def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
-                 window: torch.Tensor, norm) -> torch.Tensor:
+                 window: torch.Tensor, norm,
+                 path: Optional[str] = None) -> torch.Tensor:
     """Windowed IMDCT blocks [B, 2n] f32 of coeffs [B, n] f32.
 
     `norm` is the f32 IMDCT scale (a float, or a 0-dim tensor, read once
     by `host_scalar`).  A CPU
     `coeffs` takes `imdct_window_reference`; a CUDA one launches the kernel
-    on the current stream or raises.
+    on the current stream or raises: the product `path` names (one of
+    `PRODUCT_PATHS`; default `product_path(n)`).
     """
+    path = _path_of(path, coeffs.shape[-1] if coeffs.dim() else 0)
     if coeffs.device.type == "cpu":
         return imdct_window_reference(coeffs, cos_table, window, norm)
     if coeffs.device.type != "cuda":
@@ -549,8 +650,7 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     if coeffs.dim() != 2:
         raise ValueError(f"coeffs must be [B, n], got {tuple(coeffs.shape)}")
     B, n = coeffs.shape
-    if n % 64:
-        raise ValueError(f"n={n} must be a multiple of 64")
+    _check_n("imdct_window", n)
     dev = coeffs.device
     _check("coeffs", coeffs, (B, n), dev)
     _check("cos_table", cos_table, (n, 2 * n), dev)
@@ -559,23 +659,32 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     if B == 0:
         return out
     lib = load_library()
-    table_hi, table_lo = table_split(cos_table)
-    rc = lib.glc_imdct_window(
-        coeffs.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
-        window.data_ptr(), out.data_ptr(), B, n, host_scalar(norm),
-        _stream(dev),
-    )
+    if path == "f64":
+        rc = lib.glc_imdct_window_f64(
+            coeffs.data_ptr(), cos_table.data_ptr(), window.data_ptr(),
+            out.data_ptr(), B, n, host_scalar(norm), _stream(dev))
+    else:
+        table_hi, table_lo = table_split(cos_table)
+        coeffs = padded_rows(coeffs)
+        rc = lib.glc_imdct_window(
+            coeffs.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
+            window.data_ptr(), out.data_ptr(), B, n, host_scalar(norm),
+            _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"imdct_window launch failed: CUDA error {rc}")
     imdct_window.launches += 1
+    imdct_window.f64_launches += path == "f64"
     return out
 
 
 imdct_window.launches = 0
+imdct_window.f64_launches = 0
 
 
 def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
-              plan: Optional[MdctPlan] = None) -> torch.Tensor:
+              plan: Optional[MdctPlan] = None,
+              path: Optional[str] = None) -> torch.Tensor:
     """MDCT coefficients [M, n] f32 of windowed blocks win [M, 2n] f32 (rows
     contiguous) against cos_table [n, 2n] f32.
 
@@ -583,8 +692,11 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
     win's device (read by the kernel, with no host copy).  The inputs are
     checked on either device; then a CPU `win` takes
     `mdct_rows_reference`, and a CUDA one launches the kernel on the
-    current stream, with `plan` (default: `mdct_rows_plan` for the card),
-    or raises.  Each row's result is the same bits at any M and plan.
+    current stream or raises: the product `path` names (one of
+    `PRODUCT_PATHS`; default `product_path(n)`), the tile product with
+    `plan` (default: `mdct_rows_plan` for the card; the f64 kernel has
+    none and checks it only).  Each row's result is the same bits at any
+    M and plan.
     """
     M, width = _rows_of("mdct_rows", win)
     n = width // 2
@@ -597,31 +709,39 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
                          f"{norm.dtype}{tuple(norm.shape)} on {norm.device}")
     if plan is not None and M:
         check_mdct_plan(plan, M, n)
+    path = _path_of(path, n)
     if dev.type == "cpu":
         return mdct_rows_reference(win, cos_table, norm)
-    if n % 128:
-        raise ValueError(f"n={n} must be a multiple of 128")
+    _check_n("mdct_rows", n)
     out = torch.empty((M, n), dtype=torch.float32, device=dev)
     if M == 0:
         return out
-    if plan is None:
-        plan = mdct_rows_plan(M, n, _sms(dev))
     if not torch.is_tensor(norm):
         norm = torch.full((1,), norm, dtype=torch.float32, device=dev)
     lib = load_library()
-    table_hi, table_lo = cos_split(cos_table)
-    rc = lib.glc_mdct_rows(
-        win.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
-        norm.data_ptr(), out.data_ptr(), M, n, *plan, _stream(dev),
-    )
+    if path == "f64":
+        rc = lib.glc_mdct_rows_f64(
+            win.data_ptr(), table_t(cos_table).data_ptr(), norm.data_ptr(),
+            out.data_ptr(), M, n, _stream(dev))
+    else:
+        if plan is None:
+            plan = mdct_rows_plan(M, n, _sms(dev))
+        table_hi, table_lo = cos_split(cos_table)
+        win = padded_rows(win)
+        rc = lib.glc_mdct_rows(
+            win.data_ptr(), table_hi.data_ptr(), table_lo.data_ptr(),
+            norm.data_ptr(), out.data_ptr(), M, n, *plan, _stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"mdct_rows launch failed with plan {plan}: "
                            f"CUDA error {rc}")
     mdct_rows.launches += 1
+    mdct_rows.f64_launches += path == "f64"
     return out
 
 
 mdct_rows.launches = 0
+mdct_rows.f64_launches = 0
 
 
 def band_energy(coeffs: torch.Tensor, band_mask: torch.Tensor) -> torch.Tensor:
@@ -645,8 +765,7 @@ def band_energy(coeffs: torch.Tensor, band_mask: torch.Tensor) -> torch.Tensor:
     _check("band_mask", band_mask, (bands, n), dev)
     if dev.type == "cpu":
         return band_energy_reference(coeffs, band_mask)
-    if n % 4:
-        raise ValueError(f"n={n} must be a multiple of 4")
+    _check_n("band_energy", n)
     out = torch.empty((M, bands), dtype=torch.float32, device=dev)
     if M == 0:
         return out

@@ -55,7 +55,8 @@ from glc_tpu_torch.codec.tables import get_codec_tables  # noqa: E402
 from glc_tpu_torch.ops import kernels  # noqa: E402
 from glc_tpu_torch.ops.kernels import (  # noqa: E402
     MdctPlan, band_energy, band_energy_reference, band_plan, cos_split,
-    mdct_rows, mdct_rows_reference, mdct_unit, split_tf32, table_split,
+    mdct_rows, mdct_rows_reference, mdct_unit, row_pitch, split_tf32,
+    table_split,
 )
 from glc_tpu_torch.parity import check_containers  # noqa: E402
 
@@ -64,6 +65,14 @@ TOL = 2e-5
 ROWS = [1, 63, 129, 1292]
 EDGES = [1, 63, 64, 65, 127, 128, 129, 1000, 8192]
 CHUNKS = [4096, 512, 1000]  # tests/test_chunking.py's two, and a ragged one
+# n (the hop size) the kernels take besides 1024: the f64 path's (1, 8,
+# 120, 128, 256 and 441, 10 ms at 44.1 kHz), both sides of its cut (456,
+# 457, kernels._F64_MAX_N) and of the parent's small tile hops (256, 257),
+# 20 ms at 48 kHz (960), ragged column and k tails (496: an odd k-tile
+# count, 500, 735: odd, 1000), and the wide ones
+GEOMETRY_NS = [1, 8, 120, 128, 256, 257, 441, 456, 457, 496, 500, 735, 960,
+               1000, 4096, 8192]
+GEOMETRY_ROWS = [1, 63, 64, 65, 646, 1292, 8192]
 
 
 @pytest.fixture(scope="module")
@@ -341,6 +350,72 @@ def test_band_plan_refuses_too_many_items():
         band_plan(mask)
 
 
+@pytest.mark.parametrize("rate", [44100, 48000])
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_band_plan_at_every_n(n, rate):
+    """The plan of the codec's tables at any n: items within [0, n) that
+    cover each bin once, cut from each band's lo, lanes that share the
+    bins to within an item, and a table that one of the kernel's two
+    builds holds."""
+    from glc_tpu_torch.ops.psycho import get_perceptual_tables
+
+    mask = torch.from_numpy(get_perceptual_tables(n, rate).band_mask)
+    plan = band_plan(mask)
+    items = plan.items
+    assert (items[:, 0] >= 0).all() and (items[:, 1] <= n).all()
+    assert (items[:, 1] > items[:, 0]).all()
+    covered = np.zeros(n, np.int32)
+    for lo, hi in items:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    W = kernels.BAND_CHUNK
+    for b, (lo, hi) in enumerate(plan.ranges):
+        its = items[plan.band_first[b]:plan.band_first[b + 1]]
+        assert [tuple(i) for i in its] == [(k, min(k + W, hi))
+                                           for k in range(lo, hi, W)]
+    lens = items[:, 1] - items[:, 0]
+    assert plan.lane_bins.sum() == n
+    assert plan.lane_bins.max() <= -(-n // kernels.BAND_LANES) + W
+    for lane in range(kernels.BAND_LANES):
+        mine = plan.order[plan.lane_first[lane]:plan.lane_first[lane + 1]]
+        assert plan.lane_bins[lane] == lens[mine].sum()
+    assert any(len(items) <= its and plan.table.numel() <= ints
+               for its, ints in kernels.BAND_BUILDS)
+
+
+@pytest.mark.parametrize("rate", [44100, 48000])
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_band_energy_model_at_every_n(n, rate):
+    """The model of the kernel's arithmetic at any n: within rtol 1e-5 of
+    plain, no more than twice plain's error against float64, and the
+    in-order sum's bits on bands of <= BAND_CHUNK bins."""
+    from glc_tpu_torch.ops.psycho import get_perceptual_tables
+
+    mask = torch.from_numpy(get_perceptual_tables(n, rate).band_mask)
+    rng = np.random.default_rng(n + rate)
+    c = torch.from_numpy((rng.standard_normal((5, n)) * 0.05)
+                         .astype(np.float32))
+    model = _check_model(c, mask)
+    ranges = _ranges(mask)
+    narrow = (ranges[:, 1] - ranges[:, 0]) <= kernels.BAND_CHUNK
+    np.testing.assert_array_equal(
+        model[:, narrow], inorder_model(c.numpy(), ranges)[:, narrow])
+
+
+def test_band_plan_refuses_a_table_no_build_holds():
+    """Items within the large build, but bands enough (each one bin, an
+    item) that the plan's table outgrows it."""
+    bands = 210
+    mask = torch.zeros(bands, 2)
+    mask[:, 0] = 1.0
+    items = bands + 1  # and one for the bin no band holds
+    assert items <= kernels.BAND_MAX_ITEMS
+    assert 3 * items + 2 * kernels.BAND_LANES + 2 + 3 * bands > \
+        kernels.BAND_PLAN_CAP
+    with pytest.raises(ValueError, match="ints"):
+        band_plan(mask)
+
+
 # rows of 0.01 with non-finite squares: {name: {bin: value}}
 NON_FINITE = {
     "inf_in_top_band": {500: np.inf},
@@ -487,18 +562,21 @@ PLAN_ROWS = {"1-2048": range(1, 2049), "2049-4096": range(2049, 4097),
              "65536": [65536]}
 
 
-def _check_cover(M: int, plan: MdctPlan) -> None:
+def _check_cover(M: int, plan: MdctPlan, n: int = N) -> None:
     """The plan's warpgroup tiles cover every row below M and every column
-    exactly once, each from an aligned corner, and every block has a unit."""
+    below n exactly once, each from an aligned corner, and every block has
+    a unit; a unit starts below n (its tiles may reach past it)."""
     rows, cols, grid = plan
-    t = kernels.mdct_rows_tiles(M, N, plan)
-    block, _wg, row0, col0, held = t.T
+    t = kernels.mdct_rows_tiles(M, n, plan)
+    block, wg, row0, col0, held, held_cols = t.T
     assert (row0 % 64 == 0).all() and (col0 % cols == 0).all()
-    assert (col0 + cols <= N).all()
-    corners = row0 * N + col0
+    assert (col0[wg == 0] < n).all()
+    width = -(-n // mdct_unit(rows, cols)[1]) * mdct_unit(rows, cols)[1]
+    corners = row0 * width + col0
     assert len(np.unique(corners)) == len(t)  # aligned and distinct: disjoint
     assert (held == np.clip(M - row0, 0, 64)).all()
-    assert int(held.sum()) * cols == M * N  # so every element exactly once
+    assert (held_cols == np.clip(n - col0, 0, cols)).all()
+    assert int((held * held_cols).sum()) == M * n  # every element once
     assert set(block.tolist()) == set(range(grid))
 
 
@@ -518,9 +596,53 @@ def test_mdct_rows_tiles_cover_by_painting():
                 plan = MdctPlan(rows, cols, grid)
                 _check_cover(M, plan)
                 count = np.zeros((-(-M // 64) * 64 + 64, N), np.int32)
-                for _b, _w, r0, c0, _held in kernels.mdct_rows_tiles(M, N, plan):
+                for _b, _w, r0, c0, *_held in kernels.mdct_rows_tiles(M, N, plan):
                     count[r0:r0 + 64, c0:c0 + cols] += 1
                 assert (count[:M] == 1).all(), (M, plan)
+
+
+COVER_ROWS = [1, 63, 64, 65, 127, 128, 129, 646, 1000, 1292, 2816, 8192,
+              65536]
+
+
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_mdct_rows_plan_covers_every_row_and_column_once_at_every_n(n):
+    """The chooser's plan at any n: every row and column below n once, a
+    grid of min(units, SMs), within the launch limits."""
+    for M in COVER_ROWS:
+        plan = kernels.mdct_rows_plan(M, n, SMS)
+        _check_cover(M, plan, n)
+        kernels.check_mdct_plan(plan, M, n)
+        assert plan.grid == min(kernels.mdct_units(M, n, *plan[:2])[1], SMS)
+
+
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_mdct_rows_tiles_cover_by_painting_at_every_n(n):
+    """The cover at any n, counted element by element: every tile shape
+    at a grid of 1, 7 and the chooser's; the tiles' parts past n are
+    computed on zeros and not stored, so only [M, n] is painted."""
+    for M in (1, 63, 65, 129, 646):
+        for rows, cols in kernels.MDCT_TILES:
+            units = kernels.mdct_units(M, n, rows, cols)[1]
+            for grid in {1, min(7, units), min(SMS, units)}:
+                plan = MdctPlan(rows, cols, grid)
+                _check_cover(M, plan, n)
+                count = np.zeros((M, n), np.int32)
+                for _b, _w, r0, c0, held, held_cols in \
+                        kernels.mdct_rows_tiles(M, n, plan):
+                    count[r0:r0 + held, c0:c0 + held_cols] += 1
+                assert (count == 1).all(), (M, n, plan)
+
+
+def test_mdct_ktiles_pad_the_k_loop_to_even():
+    """Every plan walks ceil(2n / 32) k-tiles rounded up to even (the
+    narrow consumers take them in pairs): 64 at the default n, one zero
+    tile more where the count is odd."""
+    assert kernels.mdct_ktiles(N) == 64
+    for n in [*GEOMETRY_NS, *range(1, 300)]:
+        k = -(-2 * n // kernels.MDCT_K_TILE)
+        assert kernels.mdct_ktiles(n) == k + k % 2
+    assert kernels.mdct_ktiles(496) == 32 and kernels.mdct_ktiles(500) == 32
 
 
 @pytest.mark.parametrize("span", list(PLAN_ROWS))
@@ -550,9 +672,38 @@ def test_mdct_rows_plan_fills_the_card_from_646_rows(sms):
 
 
 def test_mdct_rows_plan_refuses_what_no_kernel_takes():
-    for M, n, sms in ((0, N, SMS), (5, 1000, SMS), (5, N, 0)):
+    for M, n, sms in ((0, N, SMS), (5, 8193, SMS), (5, N, 0)):
         with pytest.raises(ValueError):
             kernels.mdct_rows_plan(M, n, sms)
+
+
+def test_product_path_takes_f64_up_to_the_cut_and_tiles_above():
+    """The products' path by n: f64 from 1 to the cut the path sweep
+    measured (kernels._F64_MAX_N), the 3xTF32 tile product above it and at
+    the codec's default n, whose bits stay the tile product's."""
+    cut = kernels._F64_MAX_N
+    assert kernels.PRODUCT_PATHS == ("tiles", "f64")
+    assert [kernels.product_path(n) for n in (1, 441, cut)] == ["f64"] * 3
+    assert [kernels.product_path(n) for n in (cut + 1, 500, 960, N, 8192)] \
+        == ["tiles"] * 5
+
+
+def test_wrappers_refuse_an_unknown_path_on_either_device():
+    """`path` is one of PRODUCT_PATHS or None, checked before the CPU's
+    plain version runs; a CPU call with a named path is the plain
+    version's."""
+    tb = get_codec_tables(441, 882, RATE, "cpu")
+    win = torch.zeros((3, 882))
+    coeffs = torch.zeros((3, 441))
+    with pytest.raises(ValueError, match="path"):
+        mdct_rows(win, tb.cos_table, tb.norm, path="tf32")
+    with pytest.raises(ValueError, match="path"):
+        kernels.imdct_window(coeffs, tb.cos_table, tb.window, tb.norm_value,
+                             path="f32")
+    for path in kernels.PRODUCT_PATHS:
+        assert torch.equal(
+            mdct_rows(win, tb.cos_table, tb.norm, path=path),
+            mdct_rows_reference(win, tb.cos_table, tb.norm))
 
 
 def plan_thresholds(sms: int, top: int = 8192) -> list:
@@ -589,6 +740,36 @@ def test_cos_split_is_its_own_cache(tables):
     assert cos_split(table)[0] is hi
     assert (cos_split.splits, table_split.splits) == (before[0] + 1,
                                                       before[1] + 1)
+
+
+@pytest.mark.parametrize("n", [1, 441, 1023])
+def test_cos_split_pads_its_rows(n):
+    """At an odd n the split's rows are row_pitch(2n) floats, 16-byte
+    multiples for the kernel's TMA map: the table's split, then zeros;
+    made once per table like the others."""
+    table = get_codec_tables(n, 2 * n, RATE, "cpu").cos_table.clone()
+    before = cos_split.splits
+    hi, lo = cos_split(table)
+    assert hi.shape == lo.shape == (n, row_pitch(2 * n)) == (n, 2 * n + 2)
+    assert hi.is_contiguous() and lo.is_contiguous()
+    want_hi, want_lo = split_tf32(table)
+    assert torch.equal(hi[:, :2 * n], want_hi)
+    assert torch.equal(lo[:, :2 * n], want_lo)
+    assert not hi[:, 2 * n:].any() and not lo[:, 2 * n:].any()
+    assert cos_split(table)[0] is hi and cos_split.splits == before + 1
+
+
+def test_padded_rows_copies_only_widths_off_16_bytes():
+    """Rows whose width is a multiple of 4 floats go to the kernel as
+    they are; others are copied once to row_pitch(width), zeros after."""
+    x = torch.arange(12.0).reshape(3, 4)
+    assert kernels.padded_rows(x) is x
+    y = torch.arange(15.0).reshape(3, 5)
+    z = kernels.padded_rows(y)
+    assert z.shape == (3, 8) and z.is_contiguous()
+    assert torch.equal(z[:, :5], y) and not z[:, 5:].any()
+    assert [row_pitch(w) for w in (1, 4, 441, 882, 883)] == [4, 4, 444, 884,
+                                                            884]
 
 
 # --- tests/test_chunking.py's encode cases, on both packages ---
@@ -786,6 +967,164 @@ def test_cuda_kernels_are_row_invariant(cuda_tables):
             rows = slice(start, start + M)
             s = band_energy(big[rows].contiguous(), tb.band_mask)
             assert torch.equal(s, sums_big[rows])
+
+
+def _rows_on_card(M: int, width: int, seed: int, scale: float = 0.1,
+                  window=None) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((M, width)) * scale)
+                         .astype(np.float32)).cuda()
+    return x if window is None else x * window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_cuda_mdct_rows_at_every_n(cuda_tables, n):
+    """Any n: the kernel against plain at every row count (TOL; its error
+    against float64 no more than twice plain's), one launch a call (of the
+    f64 path where `kernels.product_path` says so), and each row the bits
+    of the same row in an 8192-row launch."""
+    tb = get_codec_tables(n, 2 * n, RATE, "cuda")
+    every = _rows_on_card(8192, 2 * n, n, window=tb.window)
+    all_rows = mdct_rows(every, tb.cos_table, tb.norm)
+    table64 = tb.cos_table.double()
+    f64 = kernels.product_path(n) == "f64"
+    for M in GEOMETRY_ROWS:
+        win = every[-M:].clone()
+        before, f64_before = mdct_rows.launches, mdct_rows.f64_launches
+        out = mdct_rows(win, tb.cos_table, tb.norm)
+        assert mdct_rows.launches == before + 1
+        assert mdct_rows.f64_launches == f64_before + f64
+        ref = mdct_rows_reference(win, tb.cos_table, tb.norm)
+        torch.cuda.synchronize()
+        assert torch.equal(out, all_rows[-M:]), M
+        torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+        exact = (win.double() @ table64.T) * tb.norm_value
+        err_kernel = (out.double() - exact).abs().max().item()
+        err_plain = (ref.double() - exact).abs().max().item()
+        assert err_kernel <= 2 * err_plain, (M, err_kernel, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_cuda_f64_path_at_every_n(cuda_tables, n):
+    """The f64 path of mdct_rows and imdct_window, asked for at any n: each
+    element the exact result rounded once, so its error against float64
+    is at most the plain version's at every row count (up to float64's
+    own rounding), one launch of the f64 kernel a call, and each row the
+    bits of the same row in an 8192-row launch."""
+    tb = get_codec_tables(n, 2 * n, RATE, "cuda")
+    table64, window64 = tb.cos_table.double(), tb.window.double()
+    cases = {
+        "mdct_rows": (
+            kernels.mdct_rows, mdct_rows_reference, (tb.cos_table, tb.norm),
+            lambda x: (x.double() @ table64.T) * tb.norm_value,
+            _rows_on_card(8192, 2 * n, n + 1, window=tb.window)),
+        "imdct_window": (
+            kernels.imdct_window, kernels.imdct_window_reference,
+            (tb.cos_table, tb.window, tb.norm_value),
+            lambda x: ((x.double() @ table64) * tb.norm_value) * window64,
+            _rows_on_card(8192, n, n + 2)),
+    }
+    for name, (wrapper, plain, rest, exact_of, every) in cases.items():
+        all_rows = wrapper(every, *rest, path="f64")
+        for M in GEOMETRY_ROWS:
+            x = every[-M:].clone()
+            before, f64_before = wrapper.launches, wrapper.f64_launches
+            out = wrapper(x, *rest, path="f64")
+            assert (wrapper.launches, wrapper.f64_launches) == (
+                before + 1, f64_before + 1)
+            ref = plain(x, *rest)
+            torch.cuda.synchronize()
+            assert torch.equal(out, all_rows[-M:]), (name, M)
+            torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+            exact = exact_of(x)
+            err_kernel = (out.double() - exact).abs().max().item()
+            err_plain = (ref.double() - exact).abs().max().item()
+            assert err_kernel <= err_plain * (1 + 1e-6), (
+                name, M, err_kernel, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_cuda_band_energy_at_every_n(cuda_tables, n):
+    """Any n, at 44.1 and 48 kHz: the kernel against plain at every row
+    count (rtol 1e-5; its error against float64 no more than twice
+    plain's), each row the bits of the same row in an 8192-row launch and
+    of the model."""
+    for rate in (44100, 48000):
+        mask = get_codec_tables(n, 2 * n, rate, "cuda").band_mask
+        every = _rows_on_card(8192, n, n + rate, scale=0.05)
+        all_rows = band_energy(every, mask)
+        for M in GEOMETRY_ROWS:
+            c = every[-M:].clone()
+            before = band_energy.launches
+            out = band_energy(c, mask)
+            assert band_energy.launches == before + 1
+            ref = band_energy_reference(c, mask)
+            torch.cuda.synchronize()
+            assert torch.equal(out, all_rows[-M:]), (rate, M)
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
+            exact = c.double() ** 2 @ mask.double().T
+            err_kernel = (out.double() - exact).abs().max().item()
+            err_plain = (ref.double() - exact).abs().max().item()
+            assert err_kernel <= 2 * err_plain, (rate, M)
+        model = band_energy_model(every[:646].cpu().numpy(), _ranges(mask))
+        np.testing.assert_array_equal(all_rows[:646].cpu().numpy(), model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, rate", [(441, 44100), (960, 48000)])
+def test_cuda_rows_are_invariant_in_rows_and_plan_at_other_hops(
+        cuda_tables, n, rate):
+    """At the 10 ms hop of 44.1 kHz and the 20 ms hop of 48 kHz: rows
+    taken from an 8192-row launch equal the same rows launched alone at
+    every row count, at any offset, and, for mdct_rows, under every tile
+    shape at a grid of 1, 7 and the chooser's."""
+    tb = get_codec_tables(n, 2 * n, rate, "cuda")
+    win = _rows_on_card(8192, 2 * n, 7, window=tb.window)
+    coeffs = mdct_rows(win, tb.cos_table, tb.norm)
+    sums = band_energy(coeffs, tb.band_mask)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M in (1, 63, 64, 65, 127, 646, 1292):
+        for start in (0, 8192 - M, 4001 % (8192 - M + 1)):
+            rows = slice(start, start + M)
+            part = win[rows].clone()
+            assert torch.equal(mdct_rows(part, tb.cos_table, tb.norm),
+                               coeffs[rows]), M
+            assert torch.equal(band_energy(coeffs[rows].clone(), tb.band_mask),
+                               sums[rows]), M
+            for shape in kernels.MDCT_TILES:
+                units = kernels.mdct_units(M, n, *shape)[1]
+                for grid in {1, min(7, units), min(units, sms)}:
+                    got = mdct_rows(part, tb.cos_table, tb.norm,
+                                    plan=MdctPlan(*shape, grid))
+                    assert torch.equal(got, coeffs[rows]), (M, shape, grid)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_n_above_the_largest(cuda_tables):
+    """n = MAX_N + 1: each wrapper raises ValueError, and each C entry
+    returns cudaErrorInvalidValue (1) before it reads a pointer."""
+    n = kernels.MAX_N + 1
+    table = torch.zeros((n, 2 * n), device="cuda")
+    rows = torch.zeros((2, n), device="cuda")
+    mask = torch.zeros((3, n), device="cuda")
+    mask[0, :10] = 1.0
+    with pytest.raises(ValueError, match=str(kernels.MAX_N)):
+        mdct_rows(torch.zeros((2, 2 * n), device="cuda"), table, 1.0)
+    with pytest.raises(ValueError, match=str(kernels.MAX_N)):
+        kernels.imdct_window(rows, table, torch.zeros(2 * n, device="cuda"),
+                             1.0)
+    with pytest.raises(ValueError, match=str(kernels.MAX_N)):
+        band_energy(rows, mask)
+    lib = kernels.load_library()
+    assert lib.glc_mdct_rows(0, 0, 0, 0, 0, 1, n, 128, 128, 1, 0) == 1
+    assert lib.glc_mdct_rows_f64(0, 0, 0, 0, 1, n, 0) == 1
+    assert lib.glc_imdct_window(0, 0, 0, 0, 0, 1, n, 1.0, 0) == 1
+    assert lib.glc_imdct_window_f64(0, 0, 0, 0, 1, n, 1.0, 0) == 1
+    plan_len = 3 * 1 + 2 * kernels.BAND_LANES + 1 + 3 * 1 + 1
+    assert lib.glc_band_energy(0, 0, 0, 1, n, 1, 1, plan_len, 0) == 1
 
 
 # NaN/Inf samples: tests/test_torch_quirks.py's, and the same without the

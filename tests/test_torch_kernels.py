@@ -22,11 +22,16 @@ import glc_tpu_torch  # noqa: F401  (full-f32 matmul settings)
 from glc_tpu_torch.codec.tables import get_codec_tables
 from glc_tpu_torch.ops import kernels
 from glc_tpu_torch.ops.kernels import (
-    imdct_window, imdct_window_reference, split_tf32, table_split,
+    imdct_window, imdct_window_reference, row_pitch, split_tf32, table_split,
 )
 
 N = 1024
 TOL = 2e-5  # the bar of tests/test_pallas.py
+# n (the hop size) the kernel takes besides 1024, and the row counts each
+# is checked at on the card (tests/test_torch_encode_kernels.py's)
+GEOMETRY_NS = [1, 8, 120, 128, 256, 257, 441, 456, 457, 496, 500, 735, 960,
+               1000, 4096, 8192]
+GEOMETRY_ROWS = [1, 63, 64, 65, 646, 1292, 8192]
 
 
 @pytest.fixture(scope="module")
@@ -154,6 +159,42 @@ def test_table_split_is_made_once_per_table(mdct):
     assert table_split.splits == before + 2
 
 
+@pytest.mark.parametrize("n", [1, 441, 500, 1023])
+def test_table_split_pads_its_rows(n):
+    """Where n is no multiple of 4 the split's rows are row_pitch(n)
+    floats, 16-byte multiples for the kernel's TMA map: the transposed
+    table's split, then zeros; made once per table."""
+    table = get_codec_tables(n, 2 * n, 44100, "cpu").cos_table.clone()
+    before = table_split.splits
+    hi, lo = table_split(table)
+    assert hi.shape == lo.shape == (2 * n, row_pitch(n))
+    assert hi.is_contiguous() and lo.is_contiguous()
+    want_hi, want_lo = split_tf32(table.T.contiguous())
+    assert torch.equal(hi[:, :n], want_hi) and torch.equal(lo[:, :n], want_lo)
+    assert not hi[:, n:].any() and not lo[:, n:].any()
+    assert table_split(table)[1] is lo and table_split.splits == before + 1
+
+
+@pytest.mark.parametrize("n", [441, 960])
+def test_cpu_matches_pallas_kernel_at_other_hops(n):
+    """The wrapper's CPU path against the Pallas kernel (interpret mode)
+    at the 10 ms hop of 44.1 kHz and the 20 ms hop of 48 kHz."""
+    from glc_tpu.ops.mdct import get_mdct_tables
+    from glc_tpu.ops.pallas_kernels import imdct_fused
+
+    mt = get_mdct_tables(n, 2 * n)
+    rng = np.random.default_rng(n)
+    coeffs = (rng.standard_normal((64, n)) * 0.1).astype(np.float32)
+    want = np.asarray(imdct_fused(coeffs, mt.cos_table, mt.window,
+                                  np.float32(mt.norm), tile_b=64,
+                                  interpret=True))
+    got = imdct_window(torch.from_numpy(coeffs),
+                       torch.from_numpy(mt.cos_table),
+                       torch.from_numpy(mt.window), float(mt.norm))
+    assert got.shape == (64, 2 * n)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
 def test_library_name_covers_flags_and_every_source(monkeypatch, tmp_path):
     base = kernels.library_path()
     assert base == kernels.library_path()
@@ -193,6 +234,38 @@ def test_cuda_kernel_matches_plain(cuda_device, B):
     err_kernel = (out.double() - exact).abs().max().item()
     err_plain = (ref.double() - exact).abs().max().item()
     assert err_kernel <= 2 * err_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GEOMETRY_NS)
+def test_cuda_kernel_at_every_n(cuda_device, n):
+    """Any n: the kernel against plain at every row count (TOL; its error
+    against float64 no more than twice plain's), one launch a call (of the
+    f64 path where `kernels.product_path` says so), and each row the bits
+    of the same row in an 8192-row launch."""
+    tables = get_codec_tables(n, 2 * n, 44100, cuda_device)
+    rng = np.random.default_rng(n)
+    every = torch.from_numpy((rng.standard_normal((8192, n)) * 0.1)
+                             .astype(np.float32)).to(cuda_device)
+    rest = (tables.cos_table, tables.window, tables.norm_value)
+    table64 = tables.cos_table.double()
+    window64 = tables.window.double()
+    all_rows = imdct_window(every, *rest)
+    f64 = kernels.product_path(n) == "f64"
+    for B in GEOMETRY_ROWS:
+        coeffs = every[-B:].clone()
+        before, f64_before = imdct_window.launches, imdct_window.f64_launches
+        out = imdct_window(coeffs, *rest)
+        assert imdct_window.launches == before + 1
+        assert imdct_window.f64_launches == f64_before + f64
+        ref = imdct_window_reference(coeffs, *rest)
+        torch.cuda.synchronize()
+        assert torch.equal(out, all_rows[-B:]), B
+        torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+        exact = ((coeffs.double() @ table64) * tables.norm_value) * window64
+        err_kernel = (out.double() - exact).abs().max().item()
+        err_plain = (ref.double() - exact).abs().max().item()
+        assert err_kernel <= 2 * err_plain, (B, err_kernel, err_plain)
 
 
 @pytest.mark.cuda
