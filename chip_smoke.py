@@ -47,7 +47,7 @@ Phases, each printing its own line(s):
    one library call (a full-f32 torch.matmul against the table with norm
    folded in; one torch.einsum of the squares against the band mask), and
    the bounds (`mdct_bound`, `band_bound`); the same three again as device
-   times of 20 calls back to back (`_device_ms`: the host's call overhead
+   times of 20 calls back to back (`bench.device_ms`: the host's call overhead
    hidden), each kernel time's share of the bound; for mdct_rows the plan
    the chooser takes at each row count and 3xTF32's floor (`mdct_floor`),
    and every plan the chooser can return (and each tile shape at 1 and 7
@@ -151,7 +151,12 @@ Phases, each printing its own line(s):
    one play_files_gapless of the 480 s album under profiling.trace: the
    device's busy time (kernels, copies, memsets) and idle share inside
    the call's span;
-21. geometry — the frame geometries other than the default hop of 1024
+21. bench — `python3 -m glc_tpu_torch.bench --quick` in a child process
+   (the port's benchmark at short shapes: a 10 s trio, the 4 x 15 s album,
+   3 rounds): exit code 0, and its last line, printed here, the flagship
+   encode_realtime_factor_44k_stereo line under 1500 characters with
+   "correct": true (the bench's own gate: card vs the port's CPU run);
+22. geometry — the frame geometries other than the default hop of 1024
    (`GEOMETRIES`: hop 256, 441, 500, 735 and 2048 at 44.1 kHz, 960 at
    48 kHz; frame_size = 2·hop): 10 s of stereo through encode_pcm16 →
    decode_i16 on the card at each, the launches counted from 0 around it
@@ -164,7 +169,9 @@ Phases, each printing its own line(s):
    and at the timed rows (the error against float64 no more than twice
    plain's, each row the bits of the same row of the largest launch); at
    hop 960, 441 and 735 the times of each kernel, its plain version and
-   one library call beside the bound (M = 8192, B = 2816), and of the
+   one library call beside the bound (M = 8192, B = 2816; the products'
+   operations at the peak of the unit their path runs on, the FP64 tensor
+   cores at the f64 hops, `bench.product_peak`), and of the
    copy into the padded pitch where the kernel makes one; and, at each n
    of `PATH_NS`, mdct_rows' and imdct_window's errors through the 3xTF32
    tile product and through their f64 path, each over plain's (the f64
@@ -173,7 +180,7 @@ Phases, each printing its own line(s):
 
 Every path counts the kernels' launches from 0 just before it runs and
 checks them just after, and the run fails if a path launched a kernel at
-the default n at a row count that phase 4 or 5 did not check (phase 21
+the default n at a row count that phase 4 or 5 did not check (phase 22
 checks its own n).  Then one JSON line with the kernel table (launch
 counts from the main path; times, library time and bound at its rows:
 B = 2816 for imdct_window, M = 8192 for the encode's kernels; under
@@ -247,6 +254,14 @@ from glc_tpu_torch import (
     serialize_encoded,
 )
 from glc_tpu_torch import album, cli, native, parallel, playback, profiling
+# the bench's bounds and peaks, kernel timing and seeded rows, quality
+# signal and metrics, trace reading and playback sink, which this script
+# shares
+from glc_tpu_torch.bench import (
+    PEAK_TF32_FLOPS, CaptureSink, band_bound, device_busy_ms, device_ms,
+    kernel_bound, mdct_bound, quality_metrics, seeded_rows,
+)
+from glc_tpu_torch.bench import make_signal as make_quality_signal
 from glc_tpu_torch.codec.decoder import (
     PRODUCER_NAME, chunk_pairs, gapless_trim_bounds,
 )
@@ -314,6 +329,7 @@ FEED_RUNS = 5          # timed playbacks of the 480 s playlist
 # make_mesh's default for its rank count: (1, 2), (2, 2) and (1, 1).
 SHARDED_WORLDS = (("gloo", 2), ("gloo", 4), ("nccl", 1))
 SHARDED_TIMEOUT_S = 300  # a world's run, spawn included; collectives: 120 s
+BENCH_TIMEOUT_S = 600    # bench --quick, the kernels' load included
 # The round trip every world also runs, so that their mse compare: the
 # 2 x 2 mesh's dry-run shape (B, K), which every world's mesh divides
 ROUNDTRIP_COMMON = (4, 4)
@@ -341,11 +357,6 @@ F64_HOP = 441
 # their row counts: the geometry phase's timed ones and a few edges
 AB_SMALL_NS = (128, 256)
 AB_SMALL_ROWS = {"encode": [8192, 646, 63, 1], "decode": [2816, 63, 1]}
-# H100 SXM peaks (NVIDIA's data sheet, dense): TF32 on the tensor cores, the
-# unit that bounds an f32-accurate product on the card, and HBM3
-PEAK_TF32_FLOPS = 495e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 
 
 def phase_device():
@@ -443,25 +454,6 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return float(np.median(times))
-
-
-def _device_ms(fn, launches: int = 20, runs: int = 5) -> float:
-    """The device time of one call of `fn`: `launches` calls queued behind
-    a ~10 ms device sleep, so that the host's call overhead is hidden and
-    they run back to back, timed with CUDA events; median of `runs`."""
-    fn()
-    times = []
-    for _ in range(runs):
-        torch.cuda._sleep(20_000_000)  # cycles
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / launches)
     return float(np.median(times))
 
 
@@ -592,31 +584,6 @@ def launch_counts() -> dict:
             for fn in (imdct_window, mdct_rows, band_energy)}
 
 
-def kernel_bound(B: int, n: int) -> tuple[float, str]:
-    """The least time (ms) the card could take for imdct_window on B rows,
-    and what sets it: the FLOPs of the one f32 product (2·B·n·2n) at the
-    TF32 tensor-core peak against the bytes of each input read once
-    (coeffs, table, window) and the output written once, at the HBM rate."""
-    return _bound(2.0 * B * n * 2 * n, PEAK_TF32_FLOPS,
-                  4.0 * (B * n + n * 2 * n + 2 * n + B * 2 * n))
-
-
-def _bound(flops: float, flop_peak: float, nbytes: float) -> tuple[float, str]:
-    """The larger of the operations' time at `flop_peak` and the bytes'
-    at the HBM rate, in ms, and which one it is."""
-    t_ops, t_bytes = flops / flop_peak, nbytes / PEAK_HBM_BYTES
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
-
-
-def mdct_bound(M: int, n: int) -> tuple[float, str]:
-    """mdct_rows on M rows: the one f32 product's FLOPs (2·M·2n·n) at the
-    TF32 peak against win, the table and the output moved once."""
-    return _bound(2.0 * M * 2 * n * n, PEAK_TF32_FLOPS,
-                  4.0 * (M * 2 * n + n * 2 * n + M * n))
-
-
 def mdct_floor(M: int, n: int) -> float:
     """3xTF32's floor for mdct_rows on M rows (ms): its three TF32 products
     at the TF32 peak, three times the one product's operations bound."""
@@ -659,14 +626,6 @@ def check_mdct_plans(tables, win) -> None:
           f"return here and each tile shape at 1 and 7 blocks "
           f"({len(plans)} plans: {[tuple(p) for p in plans]}) == the default "
           f"plan {tuple(kernels.mdct_rows_plan(M, n, card_sms()))} bit for bit")
-
-
-def band_bound(M: int, n: int, bands: int) -> tuple[float, str]:
-    """band_energy on M rows: 2·M·n f32 operations (a square and an add a
-    bin) at the CUDA cores' f32 peak against coeffs, the band mask and the
-    output moved once."""
-    return _bound(2.0 * M * n, PEAK_FP32_FLOPS,
-                  4.0 * (M * n + bands * n + M * bands))
 
 
 def check_band_energy_non_finite(tables) -> None:
@@ -755,7 +714,7 @@ def phase_encode_kernels(tables, designs: dict, rows):
                        lambda: mdct_rows_reference(*args),
                        lambda: torch.matmul(win, table_norm))
                 times = [_median_ms(fn) for fn in fns]
-                device = [_device_ms(fn) for fn in fns]
+                device = [device_ms(fn) for fn in fns]
                 bound = mdct_bound(M, n)
                 lib_name = "torch.matmul, norm folded into the table"
                 extra = (f"; plan {tuple(kernels.mdct_rows_plan(M, n, card_sms()))}"
@@ -771,9 +730,9 @@ def phase_encode_kernels(tables, designs: dict, rows):
                              tables.band_mask))]
                 bound = band_bound(M, n, bands)
                 lib_name = "torch.einsum of the squares and the mask"
-                device = [_device_ms(lambda: band_energy(*args)),
-                          _device_ms(lambda: band_energy_reference(*args)),
-                          _device_ms(lambda: torch.einsum(
+                device = [device_ms(lambda: band_energy(*args)),
+                          device_ms(lambda: band_energy_reference(*args)),
+                          device_ms(lambda: torch.einsum(
                               "mk,mk,bk->mb", coeffs, coeffs,
                               tables.band_mask))]
                 extra = ""
@@ -1012,18 +971,8 @@ def encode_kernels_ab(smi: str, pairs: int = 21) -> None:
           f"faster in {won} of {pairs} pairs")
 
 
-def seeded_rows(M: int, n: int, seed: int, window=None) -> torch.Tensor:
-    """[M, n] f32 on the card from numpy.random.default_rng(seed), * 0.1,
-    times `window` if given: phase_encode_kernels's windowed blocks (seed 2)
-    and phase_kernel's coefficients (seed 1)."""
-    rng = np.random.default_rng(seed)
-    x = torch.from_numpy((rng.standard_normal((M, n)) * 0.1)
-                         .astype(np.float32)).cuda()
-    return x if window is None else x * window
-
-
 def mdct_plans(smi: str) -> None:
-    """Device time (`_device_ms`) of every mdct_rows tile shape, at the grid
+    """Device time (`device_ms`) of every mdct_rows tile shape, at the grid
     the chooser would give it, at each row count of the encode paths and
     the tile edges, beside the chooser's pick and one torch.matmul: the
     measurement behind kernels.mdct_rows_plan's model."""
@@ -1041,9 +990,9 @@ def mdct_plans(smi: str) -> None:
         for rows_, cols in kernels.MDCT_TILES:
             units = kernels.mdct_units(M, n, rows_, cols)[1]
             plan = kernels.MdctPlan(rows_, cols, min(units, card_sms()))
-            times[(rows_, cols)] = _device_ms(
+            times[(rows_, cols)] = device_ms(
                 lambda: mdct_rows(*args, plan=plan))
-        lib = _device_ms(lambda: torch.matmul(win, table_norm))
+        lib = device_ms(lambda: torch.matmul(win, table_norm))
         best = min(times, key=times.get)
         pick = tuple(kernels.mdct_rows_plan(M, n, card_sms()))
         print(f"[mdct plans] M={M} ({smi}), back to back: "
@@ -1097,19 +1046,19 @@ for n, enc, dec in {shapes}:
         y = mdct_rows(*args).cpu().numpy()
         out["mdct_rows"][f"{{n}} {{M}}"] = (
             hashlib.sha256(y.tobytes()).hexdigest(),
-            _device_ms(lambda: mdct_rows(*args)))
+            device_ms(lambda: mdct_rows(*args)))
         bargs = (coeffs_all[-M:].contiguous(), tables.band_mask)
         y = band_energy(*bargs).cpu().numpy()
         out["band_energy"][f"{{n}} {{M}}"] = (
             hashlib.sha256(y.tobytes()).hexdigest(),
-            _device_ms(lambda: band_energy(*bargs)))
+            device_ms(lambda: band_energy(*bargs)))
     for B in dec:
         args = (seeded_rows(B, n, 1), tables.cos_table, tables.window,
                 tables.norm_value)
         y = imdct_window(*args).cpu().numpy()
         out["imdct_window"][f"{{n}} {{B}}"] = (
             hashlib.sha256(y.tobytes()).hexdigest(),
-            _device_ms(lambda: imdct_window(*args)))
+            device_ms(lambda: imdct_window(*args)))
 print(json.dumps(out))
 """
 
@@ -1133,7 +1082,7 @@ def kernel_ab(other: Path, smi: str) -> None:
         for n in AB_SMALL_NS]
     child = _KERNEL_AB_CHILD.format(
         seeded_rows=inspect.getsource(seeded_rows),
-        device_ms=inspect.getsource(_device_ms), rate=SAMPLE_RATE,
+        device_ms=inspect.getsource(device_ms), rate=SAMPLE_RATE,
         shapes=shapes)
     here = Path(__file__).resolve().parent
     runs = []
@@ -1213,40 +1162,10 @@ def phase_invariance(pcm: np.ndarray, encoded):
           f"band_energy launch a segment")
 
 
-def quality_signal(duration_s: float = QUALITY_SECONDS,
-                   sample_rate: int = SAMPLE_RATE) -> np.ndarray:
-    """bench.py:82-107 make_signal, copied: stereo program-like material
-    (chord + sweep + noise bed), interleaved f32."""
-    t = np.arange(int(sample_rate * duration_s), dtype=np.float32) / sample_rate
-    ts = np.mod(t, np.float32(60.0))
-    left = (
-        0.30 * np.sin(2 * np.pi * 261.63 * t)
-        + 0.20 * np.sin(2 * np.pi * 329.63 * t)
-        + 0.15 * np.sin(2 * np.pi * (440.0 + 100.0 * ts) * ts)
-    )
-    rng = np.random.default_rng(1234)
-    noise = rng.standard_normal(len(t)).astype(np.float32) * 0.01
-    right = left * 0.9 + noise
-    out = np.empty(2 * len(t), np.float32)
-    out[0::2] = left + noise
-    out[1::2] = right
-    return out
-
-
-def quality_snr(sig: np.ndarray, out: np.ndarray) -> float:
-    """bench.py:843-852, copied: the SNR over the interleaved samples, 1000
-    samples skipped at each end."""
-    n = min(len(out), len(sig))
-    sl = slice(1000, n - 1000)
-    a, b = sig[:n][sl].astype(np.float64), out[:n][sl].astype(np.float64)
-    err = a - b
-    return 10.0 * np.log10(np.sum(a * a) / max(np.sum(err * err), 1e-20))
-
-
 def phase_quality(smi: str):
     """quality_stereo_5s: compat and clean SNR on the card and through the
     port on the CPU, in this run."""
-    sig = quality_signal()
+    sig = make_quality_signal(QUALITY_SECONDS)
     snr = {}
     for mode, cfg in (("compat", DEFAULT_CONFIG),
                       ("clean", replace(DEFAULT_CONFIG,
@@ -1254,7 +1173,8 @@ def phase_quality(smi: str):
         for device in ("cuda", "cpu"):
             enc = Encoder(SAMPLE_RATE, config=cfg, device=device)
             dec = Decoder(2, SAMPLE_RATE, config=cfg, device=device)
-            snr[mode, device] = quality_snr(sig, dec.decode(enc.encode(sig, 2)))
+            snr[mode, device] = quality_metrics(
+                sig, dec.decode(enc.encode(sig, 2)))["snr_db"]
         gap = abs(snr[mode, "cuda"] - snr[mode, "cpu"])
         if not np.isfinite(snr[mode, "cuda"]) or gap > QUALITY_TOL_DB:
             raise AssertionError(f"quality {mode}: card {snr[mode, 'cuda']} "
@@ -1795,34 +1715,6 @@ def phase_api(pcm: np.ndarray, encoded, out, flac: bytes, many, outs,
     return result
 
 
-class CaptureSink:
-    """A playback sink that keeps every chunk it is given, and the
-    perf_counter time of each append."""
-
-    def __init__(self, sample_rate: int, channels: int, log: list):
-        self.sample_rate = sample_rate
-        self.channels = channels
-        self.parts: list = []
-        self.times: list = []
-        self.closed = False
-        log.append(self)
-
-    def write(self, samples) -> bool:
-        self.parts.append(np.asarray(samples, np.float32))
-        self.times.append(time.perf_counter())
-        return True
-
-    def append(self, source) -> bool:
-        return self.write(source.remaining())
-
-    def close(self) -> int:
-        self.closed = True
-        return 0
-
-    def stream(self) -> np.ndarray:
-        return np.concatenate(self.parts)
-
-
 def untrimmed(path: Path) -> np.ndarray:
     """A .glc file's decode_streaming chunks on the card, joined."""
     ea = load_encoded(path)
@@ -2141,21 +2033,6 @@ def phase_profile(encoded, out):
           f"untraced {t_plain:.4f} s (median of 5)")
 
 
-def device_busy_ms(events, t0: float, t1: float) -> float:
-    """Milliseconds of [t0, t1] (trace microseconds) in which the card ran
-    a kernel, a copy or a memset: the union of those events' intervals."""
-    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
-                   for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, t0
-    for a, b in spans:
-        a = max(a, end)
-        if b > a:
-            busy += b - a
-            end = b
-    return busy / 1e3
-
-
 def phase_play_profile(many, smi: str):
     """One play_files_gapless of the 480 s album under profiling.trace:
     the device's busy time and idle share inside the call's span."""
@@ -2186,6 +2063,32 @@ def phase_play_profile(many, smi: str):
           f"profiling.trace ({smi}): span {span['dur'] / 1e3:.2f} ms, device "
           f"busy {busy:.3f} ms (imdct_window {kernels_ms:.3f} ms), idle "
           f"share {1 - busy / (span['dur'] / 1e3):.4f}")
+
+
+def phase_bench(smi: str) -> dict:
+    """`python3 -m glc_tpu_torch.bench --quick` in a child process, from
+    this checkout: exit code 0, and its last line the flagship metric line
+    with "correct": true, which is printed here.  Returns that line."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "glc_tpu_torch.bench", "--quick"], cwd=root,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode or not lines:
+        raise AssertionError(f"bench --quick: exit code {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    last = json.loads(lines[-1])
+    if (last.get("metric") != "encode_realtime_factor_44k_stereo"
+            or last.get("correct") is not True
+            or len(lines[-1]) >= 1500):
+        raise AssertionError(f"bench --quick's last line: {lines[-1]}")
+    print(f"[bench] python3 -m glc_tpu_torch.bench --quick ({smi}): exit "
+          f"code 0 in {secs:.1f} s, {len(lines)} lines; its last line "
+          f"({len(lines[-1])} characters, correct: true):")
+    print(lines[-1])
+    return last
 
 
 def album_f32(pcm: np.ndarray) -> np.ndarray:
@@ -2571,7 +2474,7 @@ def geometry_kernel_checks(n: int, rate: int, rows: dict) -> dict:
 
 def geometry_times(n: int, rate: int, smi: str) -> dict:
     """The times (medians of 20 single calls, and back to back:
-    `_device_ms`) of each kernel at n, its plain version and one library
+    `device_ms`) of each kernel at n, its plain version and one library
     call, beside the bound, at M = 8192 (mdct_rows, band_energy) and
     B = 2816 (imdct_window); and the copy into the padded pitch where the
     kernel makes one (`kernels.padded_rows`).  Returns {kernel: {...}}."""
@@ -2603,7 +2506,7 @@ def geometry_times(n: int, rate: int, smi: str) -> dict:
     out = {}
     for name, (kern, plain, lib, bound, padded) in calls.items():
         ms = [_median_ms(fn) for fn in (kern, plain, lib)]
-        device = [_device_ms(fn) for fn in (kern, plain, lib)]
+        device = [device_ms(fn) for fn in (kern, plain, lib)]
         rows = B if name == "imdct_window" else M
         copy = ""
         entry = {"rows": rows, "ms": ms[0], "plain_ms": ms[1],
@@ -2678,7 +2581,7 @@ def product_paths(smi: str) -> None:
                             f"float64 {err:.3e} exceeds twice plain's "
                             f"{err_plain:.3e}")
             for path in kernels.PRODUCT_PATHS:
-                times[(name, path)] = _device_ms(
+                times[(name, path)] = device_ms(
                     lambda: kern(x_all, path=path))
         print(f"[geometry] n={n} ({smi}), the wrappers take {taken}; error "
               f"vs float64 over plain's at rows 1/63/8192: " + "; ".join(
@@ -2897,6 +2800,7 @@ def main(argv: list[str]) -> int:
     phase_controller(short[0], short[1])
     phase_profile(encoded, out)
     phase_play_profile(many, smi)
+    phase_bench(smi)
     geometry = phase_geometry(smi)
     for kernel in KERNEL_NAMES:
         unchecked = LAUNCHED_ROWS[kernel] - set(kern[kernel])

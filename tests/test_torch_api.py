@@ -32,6 +32,7 @@ which has no JAX, run them with
 import inspect
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -246,25 +247,36 @@ def test_decode_many_stats_hook_counts_the_multi_chunk_tracks():
             assert np.abs(out.astype(np.int32) - want).max(initial=0) <= 1
 
 
-def test_decode_i16_stream_leaves_consumer_time_out():
+def test_decode_i16_stream_leaves_consumer_time_out(monkeypatch):
     """A consumer that sleeps between chunks: its time lands in no key.
     11 chunks of 8 frames, more than the 8 in flight, so chunks are
-    dispatched between yields too.  The stream is the unhooked one."""
+    dispatched between yields too.  The stream is the unhooked one.
+
+    The hook's clock (`codec/device.py`'s `time.perf_counter`) is the real
+    clock plus an offset that the consumer's "sleep" moves on by `step_s`
+    a chunk, in no real time: one chunk of the consumer's time in any key
+    would put it past `step_s`, which no real host work comes near, however
+    loaded the host."""
+    from glc_tpu_torch.codec import device as device_mod
+
+    step_s, offset = 1000.0, [0.0]
+    monkeypatch.setattr(device_mod, "time", types.SimpleNamespace(
+        perf_counter=lambda: time.perf_counter() + offset[0]))
     ea = Encoder(RATE, device="cpu").encode(tone(2.0, 440.0, 2), 2)
     dec = Decoder(2, RATE, device="cpu")
     plain = list(dec.decode_i16_stream(ea, chunk_frames=8))
     stats: dict = {}
-    nap, parts = 0.05, []
+    parts = []
     for part in dec.decode_i16_stream(ea, chunk_frames=8, stats=stats):
         parts.append(part)
-        time.sleep(nap)
-    slept = nap * len(parts) * 1e3
+        offset[0] += step_s
+    step_ms = step_s * 1e3
     assert len(parts) == len(plain) == 11
     for a, b in zip(parts, plain):
         np.testing.assert_array_equal(a, b)
     assert stats["up_n"] == UPLOADS_PER_CHUNK * 11 and stats["down_n"] == 11
-    assert stats["wait_ms"] < slept
-    assert stats["pack_ms"] + stats["disp_ms"] + stats["wait_ms"] < slept
+    assert stats["wait_ms"] < step_ms
+    assert stats["pack_ms"] + stats["disp_ms"] + stats["wait_ms"] < step_ms
 
 
 # --- (b) encode_chunk_device ---
