@@ -176,17 +176,44 @@ Phases, each printing its own line(s):
    of `PATH_NS`, mdct_rows' and imdct_window's errors through the 3xTF32
    tile product and through their f64 path, each over plain's (the f64
    path's, and the path the wrappers take at that n, no more than
-   twice), and both paths' times.
+   twice), and both paths' times;
+23. conformance — the sample rates and channel counts of the JAX
+   package's suites (tests/test_comprehensive.py, tests/test_torture.py):
+   10 s of program material (`program_material` of
+   tests/test_torch_rates.py) at 8000, 22050, 44100, 48000 and 96000 Hz
+   x 1, 2, 4 and 6 channels through encode_pcm16 -> decode_i16 on the
+   card, the launches counted from 0 around each case, the container
+   within the pair contract of the CPU port's and the decode within 1 LSB,
+   each flip rate and worst LSB printed; two realistic files through
+   cli.main (WAV -> .glc -> FLAC -> .glc): 120 s of 6-channel 48 kHz (a
+   5.1 film stem: 24 576-row encode segments) and 60 s of 96 kHz stereo
+   (a hi-res master), the FLAC holding decode_i16 of the .glc, the
+   container from the FLAC equal to encode_pcm16 of its samples, both
+   within the contract of the CPU port's, and the encode_pcm16 and
+   decode_i16 walls, medians of 5 after a warm-up; tests/test_torture.py's
+   30 seeded configurations on the card through the invariants of
+   tests/test_torch_torture.py (chunk-size invariance bit for bit), each
+   container within the contract of the CPU port's; the RFC 9639 byte
+   literals and foreign streams of tests/test_torch_flac_conformance.py
+   through the native and Python FLAC decoders; then each kernel against
+   its plain version at every rate's tables (its band plan: 33 bands at
+   8 kHz, 50 from 22.05 kHz) on every row count the phase launched it
+   with there (the same checks as phase 22's), and each kernel's times
+   there (M = 8192, B = 2816) beside plain's, the library call's and the
+   bound, as phase 22 times them.
 
 Every path counts the kernels' launches from 0 just before it runs and
 checks them just after, and the run fails if a path launched a kernel at
 the default n at a row count that phase 4 or 5 did not check (phase 22
-checks its own n).  Then one JSON line with the kernel table (launch
-counts from the main path; times, library time and bound at its rows:
-B = 2816 for imdct_window, M = 8192 for the encode's kernels; under
+checks its own n, phase 23 its own rates).  Then one JSON line with the
+kernel table (launch counts from the main path; times, library time and
+bound at its rows: B = 2816 for imdct_window, M = 8192 for the encode's
+kernels; under
 "geometry" each hop's launches, checked rows and, at 960, 441 and 735,
 times; the f64 path's two kernels with their launches, errors and times
-from the geometry phase at hop 441),
+from the geometry phase at hop 441; under "rates" each rate's launches,
+checked rows, largest difference from plain and times in the
+conformance phase, and under "conformance" its summary),
 and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero;
 without a CUDA device the script exits 1 and prints no result.
@@ -274,6 +301,7 @@ from glc_tpu_torch.container.schema import EncodedAudio, ProgressKind
 from glc_tpu_torch.controller import CodecController
 from glc_tpu_torch.flac import bitpack
 from glc_tpu_torch.flac.decoder import decode_flac
+from glc_tpu_torch.flac.pydecoder import decode_flac_python
 from glc_tpu_torch.flac.encoder import (
     encode_flac_i16_streaming, encode_flac_i16_with_level,
 )
@@ -305,6 +333,16 @@ from test_torch_api import (  # noqa: E402
 )
 # the n of the cuda tests' every-n cases, whose rows --path-sweep also runs
 from test_torch_kernels import GEOMETRY_NS as TEST_GEOMETRY_NS  # noqa: E402
+# the conformance phase's program material, torture draws and invariants,
+# and FLAC streams, as the tests hold the port to them
+from test_torch_flac_conformance import FOREIGN, SPEC_VECTORS  # noqa: E402
+from test_torch_flac_conformance import STREAM_B as FLAC_GOLDEN  # noqa: E402
+from test_torch_flac_conformance import outcome as flac_outcome  # noqa: E402
+from test_torch_rates import check_kernel_rows, program_material  # noqa: E402
+from test_torch_torture import CASES as TORTURE_CASES  # noqa: E402
+from test_torch_torture import (  # noqa: E402
+    SMALL_CHUNK, check_invariants, torture_case,
+)
 
 SAMPLE_RATE = 44100
 SECONDS = 180
@@ -353,6 +391,17 @@ PATH_NS = (1, 8, 120, 256, 441, 456, 457)
 # that line reports
 F64_KERNELS = {"imdct_window_f64": "imdct_window", "mdct_rows_f64": "mdct_rows"}
 F64_HOP = 441
+# The conformance phase (23): the rates and channel counts of the JAX
+# package's suites (tests/test_comprehensive.py, tests/test_torture.py),
+# each case CONFORMANCE_SECONDS of program material; realistic files
+# through the CLI, (label, seconds, rate, channels), and the runs of their
+# walls
+CONFORMANCE_RATES = (8000, 22050, 44100, 48000, 96000)
+CONFORMANCE_CHANNELS = (1, 2, 4, 6)
+CONFORMANCE_SECONDS = 10
+FULL_SIZE = (("5.1 film stem", 120, 48000, 6),
+             ("hi-res master", 60, 96000, 2))
+FULL_SIZE_RUNS = 5
 # --kernel-ab's other n (the parent's kernels took these hops too) and
 # their row counts: the geometry phase's timed ones and a few edges
 AB_SMALL_NS = (128, 256)
@@ -545,16 +594,42 @@ GEOMETRY_LAUNCHED: dict[str, dict[int, set[int]]] = {
     name: {} for name in KERNEL_NAMES}
 
 
+# rate -> kernel -> the row counts the conformance phase launched it with
+# (at the default n, at that rate's tables); the rate its calls go to
+RATE_LAUNCHED: dict[int, dict[str, set[int]]] = {}
+_RECORDING_RATE: list = [None]
+
+
 def record_rows(name: str, rows: int, n: int) -> None:
-    if n == DEFAULT_CONFIG.n:
+    rate = _RECORDING_RATE[0]
+    if rate is not None:
+        if n != DEFAULT_CONFIG.n:
+            raise AssertionError(f"{name} launched at n={n} in the "
+                                 f"conformance phase")
+        RATE_LAUNCHED.setdefault(rate, {k: set() for k in KERNEL_NAMES})[
+            name].add(rows)
+    elif n == DEFAULT_CONFIG.n:
         LAUNCHED_ROWS[name].add(rows)
     else:
         GEOMETRY_LAUNCHED[name].setdefault(n, set()).add(rows)
 
 
+@contextlib.contextmanager
+def recording_rate(rate: int):
+    """Record the kernels' launched rows under `rate` in RATE_LAUNCHED
+    (the conformance phase's, checked at that rate's tables) instead of
+    LAUNCHED_ROWS, which phases 4 and 5 check at 44.1 kHz's."""
+    _RECORDING_RATE[0] = rate
+    try:
+        yield
+    finally:
+        _RECORDING_RATE[0] = None
+
+
 def record_launch_rows(record=record_rows):
-    """Route the paths' calls of the three kernel wrappers through
-    `record(kernel, row count, n)`; the wrappers themselves, and their
+    """Route the paths' calls of the three kernel wrappers on the card
+    through `record(kernel, row count, n)` (a CPU call runs the plain
+    version and is not recorded); the wrappers themselves, and their
     launch counts, stay as they are (the kernel phases call them
     directly)."""
     def wrap(module, name):
@@ -562,7 +637,8 @@ def record_launch_rows(record=record_rows):
         per_n = 2 if name == "mdct_rows" else 1  # win's rows are 2n wide
 
         def recorded(rows, *args):
-            record(name, rows.shape[0], rows.shape[1] // per_n)
+            if rows.is_cuda:
+                record(name, rows.shape[0], rows.shape[1] // per_n)
             return wrapper(rows, *args)
 
         setattr(module, name, recorded)
@@ -2412,58 +2488,17 @@ def geometry_round_trip(hop: int, rate: int, smi: str) -> dict:
     return counts
 
 
-def geometry_kernel_checks(n: int, rate: int, rows: dict) -> dict:
-    """Each kernel against its plain version at n on the row counts
-    `rows[kernel]`: within KERNEL_TOL (band_energy BAND_RTOL), the error
-    against float64 no more than twice plain's, each launch's rows the
-    bits of the same rows of the largest launch.  Returns each kernel's
-    largest |kernel - plain|."""
-    tables = get_codec_tables(n, 2 * n, rate, "cuda")
-    table64, window64 = tables.cos_table.double(), tables.window.double()
-    mask = tables.band_mask
+def geometry_kernel_checks(n: int, rate: int, rows: dict,
+                           tag: str = "geometry") -> dict:
+    """Each kernel against its plain version at n and `rate`'s tables on
+    the row counts `rows[kernel]` (`check_kernel_rows` of
+    tests/test_torch_rates.py: within KERNEL_TOL, band_energy BAND_RTOL,
+    the error against float64 no more than twice plain's, each launch's
+    rows the bits of the same rows of the largest launch).  Returns each
+    kernel's largest |kernel - plain|."""
+    worst = check_kernel_rows(rate, rows, n)
     top = max(max(r) for r in rows.values())
-    win_all = seeded_rows(top, 2 * n, 2, tables.window)
-    coeffs_all = mdct_rows(win_all, tables.cos_table, tables.norm)
-    sums_all = band_energy(coeffs_all, mask)
-    dec_all = seeded_rows(top, n, 1)
-    blocks_all = imdct_window(dec_all, tables.cos_table, tables.window,
-                              tables.norm_value)
-    worst = {name: 0.0 for name in KERNEL_NAMES}
-    for name in KERNEL_NAMES:
-        for M in sorted(rows[name]):
-            if name == "mdct_rows":
-                x = win_all[-M:].clone()
-                out = mdct_rows(x, tables.cos_table, tables.norm)
-                ref = mdct_rows_reference(x, tables.cos_table, tables.norm)
-                exact = (x.double() @ table64.T) * tables.norm_value
-                whole, tol = coeffs_all, dict(atol=KERNEL_TOL, rtol=KERNEL_TOL)
-            elif name == "band_energy":
-                x = coeffs_all[-M:].clone()
-                out = band_energy(x, mask)
-                ref = band_energy_reference(x, mask)
-                exact = x.double() ** 2 @ mask.double().T
-                whole, tol = sums_all, dict(atol=0.0, rtol=BAND_RTOL)
-            else:
-                x = dec_all[-M:].clone()
-                args = (x, tables.cos_table, tables.window, tables.norm_value)
-                out = imdct_window(*args)
-                ref = imdct_window_reference(*args)
-                exact = ((x.double() @ table64) * tables.norm_value) * window64
-                whole, tol = blocks_all, dict(atol=KERNEL_TOL,
-                                              rtol=KERNEL_TOL)
-            torch.cuda.synchronize()
-            if not torch.equal(out, whole[-M:]):
-                raise AssertionError(f"{name} n={n} M={M}: rows differ from "
-                                     f"the same rows of the {top}-row launch")
-            torch.testing.assert_close(out, ref, **tol)
-            err_kernel = (out.double() - exact).abs().max().item()
-            err_plain = (ref.double() - exact).abs().max().item()
-            if err_kernel > 2 * err_plain:
-                raise AssertionError(
-                    f"{name} n={n} M={M}: error vs float64 {err_kernel:.3e} "
-                    f"exceeds twice the plain version's {err_plain:.3e}")
-            worst[name] = max(worst[name], (out - ref).abs().max().item())
-    print(f"[geometry] n={n} ({rate} Hz tables), each kernel against plain: "
+    print(f"[{tag}] n={n} ({rate} Hz tables), each kernel against plain: "
           + "; ".join(f"{k} at rows {sorted(r, reverse=True)}, "
                       f"max|kernel-plain| {worst[k]:.3e}"
                       for k, r in rows.items())
@@ -2472,7 +2507,8 @@ def geometry_kernel_checks(n: int, rate: int, rows: dict) -> dict:
     return worst
 
 
-def geometry_times(n: int, rate: int, smi: str) -> dict:
+def geometry_times(n: int, rate: int, smi: str,
+                   tag: str = "geometry") -> dict:
     """The times (medians of 20 single calls, and back to back:
     `device_ms`) of each kernel at n, its plain version and one library
     call, beside the bound, at M = 8192 (mdct_rows, band_energy) and
@@ -2520,7 +2556,8 @@ def geometry_times(n: int, rate: int, smi: str) -> dict:
             copy = (f"; of it, the copy of {tuple(padded.shape)} to pitch "
                     f"{kernels.row_pitch(padded.shape[1])} {copy_ms:.4f} ms")
         out[name] = entry
-        print(f"[geometry] {name} n={n} rows={rows} ({smi}), median of 20: "
+        print(f"[{tag}] {name} n={n} rows={rows} ({rate} Hz tables; {smi}), "
+              f"median of 20: "
               f"kernel {ms[0]:.4f} ms ({bound[0] / ms[0]:.1%} of the bound), "
               f"plain {ms[1]:.4f} ms, library {ms[2]:.4f} ms; back to back: "
               f"kernel {device[0]:.4f} ms ({bound[0] / device[0]:.1%} of the "
@@ -2743,6 +2780,275 @@ def phase_geometry(smi: str) -> dict:
     return result
 
 
+def conformance_case(rate: int, channels: int, smi: str) -> dict:
+    """CONFORMANCE_SECONDS of `program_material` at `rate` and `channels`
+    through encode_pcm16 -> decode_i16 on the card, the launches counted
+    from 0 around it (one mdct_rows and one band_energy launch a segment,
+    one imdct_window launch a decode chunk, none of the f64 path) and their
+    rows recorded under the rate; the container within the pair contract
+    of the CPU port's, the decode within 1 LSB of the CPU port's decode of
+    the same container.  Returns the counts, flip rate and worst LSB."""
+    cfg = DEFAULT_CONFIG
+    pcm = program_material(CONFORMANCE_SECONDS, rate, channels,
+                           seed=rate + channels)
+    plan = upload_geometry(len(pcm), channels, cfg)[3]
+    enc = Encoder(rate, device="cuda")
+    dec = Decoder(channels, rate, device="cuda")
+    with recording_rate(rate):
+        reset_launches()
+        encoded = enc.encode_pcm16(pcm, channels)
+        out = dec.decode_i16(encoded)
+        counts = launch_counts()
+        f64 = mdct_rows.f64_launches + imdct_window.f64_launches
+    chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
+    want = {"imdct_window": chunks, "mdct_rows": len(plan),
+            "band_energy": len(plan)}
+    if counts != want or f64:
+        raise AssertionError(f"{rate} Hz x {channels}: launches {counts} "
+                             f"(f64 path {f64}), the geometry says {want}")
+    if len(out) != len(pcm):
+        raise AssertionError(f"{rate} Hz x {channels}: decoded {len(out)} "
+                             f"samples of {len(pcm)}")
+    flips = check_containers(
+        encoded, Encoder(rate, device="cpu").encode_pcm16(pcm, channels))
+    out_cpu = Decoder(channels, rate, device="cpu").decode_i16(encoded)
+    d = np.abs(out_cpu.astype(np.int32) - out.astype(np.int32))
+    if d.max() > 1:
+        raise AssertionError(f"{rate} Hz x {channels}: card vs CPU decode "
+                             f"differs by {d.max()} LSB")
+    print(f"[conformance] {rate} Hz x {channels} ch, {CONFORMANCE_SECONDS} s "
+          f"({smi}): {encoded.frame_set.num_frames} frames, "
+          f"{int(encoded.frame_set.raw_mask.sum())} raw; launches {counts}; "
+          f"card vs CPU: {flips['gate']} keep-gate and {flips['pm1']} +-1 "
+          f"flips of {flips['kept']} kept (rate {flips['rate']:.5%}), "
+          f"decode_i16 max {int(d.max())} LSB on {int(np.count_nonzero(d))} "
+          f"of {len(d)} samples")
+    return {"launches": counts, "flip_rate": flips["rate"],
+            "max_lsb": int(d.max())}
+
+
+def _median_wall(fn, runs: int = FULL_SIZE_RUNS) -> float:
+    """The median wall (s) of `runs` calls of fn after a warm-up call."""
+    fn()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+def conformance_full_size(label: str, seconds: int, rate: int,
+                          channels: int, smi: str) -> dict:
+    """A realistic file through cli.main as a user calls it: its WAV ->
+    .glc -> FLAC (the default) -> .glc on the card, launches counted from
+    0 around each call and their rows recorded under the rate.  The FLAC
+    holds decode_i16 of the .glc; the container from the FLAC equals
+    encode_pcm16 of its samples; each container within the pair contract
+    of the CPU port's encode of the same samples; decode_i16 within 1 LSB
+    of the CPU's.  Then the encode_pcm16 and decode_i16 walls on the card,
+    medians of FULL_SIZE_RUNS after a warm-up, and one call of each with
+    the `stats=` hook (where the host's time goes)."""
+    cfg = DEFAULT_CONFIG
+    pcm = program_material(seconds, rate, channels, seed=seconds)
+    plan = upload_geometry(len(pcm), channels, cfg)[3]
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "full.wav"
+        glc, flac = wav.with_suffix(".glc"), wav.with_suffix(".flac")
+        write_wav_i16(wav, pcm, rate, channels)
+        with recording_rate(rate):
+            reset_launches()
+            rcs = [cli.main([str(wav)])]
+            enc_counts = launch_counts()
+            encoded = load_encoded(glc)
+            reset_launches()
+            rcs.append(cli.main(["-d", str(glc)]))
+            dec_counts = launch_counts()
+            want = Decoder(channels, rate, device="cuda").decode_i16(encoded)
+            samples, frate, fch, bps = decode_flac(flac.read_bytes())
+            wav.unlink()
+            rcs.append(cli.main([str(flac)]))
+            again = load_encoded(glc)
+            ref = Encoder(rate, device="cuda").encode_pcm16(
+                samples.astype(np.int16), channels)
+    chunks = decode_chunks([encoded], cfg.stream_chunk_frames)
+    if rcs != [0, 0, 0]:
+        raise AssertionError(f"{label}: CLI exit codes {rcs}")
+    if enc_counts != {"imdct_window": 0, "mdct_rows": len(plan),
+                      "band_energy": len(plan)}:
+        raise AssertionError(f"{label}: the CLI encode launched {enc_counts} "
+                             f"for {len(plan)} segments")
+    if dec_counts != {"imdct_window": chunks, "mdct_rows": 0,
+                      "band_energy": 0}:
+        raise AssertionError(f"{label}: the CLI decode launched {dec_counts} "
+                             f"for {chunks} chunks")
+    if (frate, fch, bps) != (rate, channels, 16) or not np.array_equal(
+            samples, want.astype(np.int32)):
+        raise AssertionError(f"{label}: the CLI's FLAC != decode_i16 of its "
+                             f".glc")
+    if serialize_encoded(again) != serialize_encoded(ref):
+        raise AssertionError(f"{label}: the FLAC input's container != "
+                             f"encode_pcm16 of its samples")
+    cpu = Encoder(rate, device="cpu")
+    flips = [check_containers(encoded, cpu.encode_pcm16(pcm, channels)),
+             check_containers(again, cpu.encode_pcm16(
+                 samples.astype(np.int16), channels))]
+    out_cpu = Decoder(channels, rate, device="cpu").decode_i16(encoded)
+    d = np.abs(out_cpu.astype(np.int32) - want.astype(np.int32))
+    if d.max() > 1:
+        raise AssertionError(f"{label}: card vs CPU decode differs by "
+                             f"{d.max()} LSB")
+    enc = Encoder(rate, device="cuda")
+    dec = Decoder(channels, rate, device="cuda")
+    st_enc, st_dec = {}, {}
+    with recording_rate(rate):
+        t_enc = _median_wall(lambda: enc.encode_pcm16(pcm, channels))
+        t_dec = _median_wall(lambda: dec.decode_i16(encoded))
+        enc.encode_pcm16(pcm, channels, stats=st_enc)
+        dec.decode_i16(encoded, stats=st_dec)
+    split = "; ".join(
+        f"{what} " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(st.items()))
+        for what, st in (("encode", st_enc), ("decode", st_dec)))
+    rows = sorted({channels * k for _s, k in plan}, reverse=True)
+    print(f"[conformance] {label}: {seconds} s, {rate} Hz, {channels} ch "
+          f"through cli.main (wav -> glc -> flac -> glc): exit codes {rcs}; "
+          f"{encoded.frame_set.num_frames} frames, encode segments of rows "
+          f"{rows}, {chunks} stream chunks; launches encode {enc_counts}, "
+          f"decode {dec_counts}; FLAC == decode_i16, FLAC-input container "
+          f"== encode_pcm16; card vs CPU flips {flips[0]['rate']:.5%} "
+          f"(WAV), {flips[1]['rate']:.5%} (FLAC), decode_i16 max "
+          f"{int(d.max())} LSB")
+    print(f"[conformance] {label} ({smi}), medians of {FULL_SIZE_RUNS} after "
+          f"a warm-up: encode_pcm16 {t_enc * 1e3:.2f} ms "
+          f"({seconds / t_enc:.1f}x realtime), decode_i16 {t_dec * 1e3:.2f} "
+          f"ms ({seconds / t_dec:.1f}x realtime); one hooked call each "
+          f"(stats=, host ms and copies): {split}")
+    return {"flip_rate": max(f["rate"] for f in flips),
+            "max_lsb": int(d.max()), "encode_ms": t_enc * 1e3,
+            "decode_ms": t_dec * 1e3, "encode_stats": st_enc,
+            "decode_stats": st_dec}
+
+
+def conformance_torture(smi: str) -> dict:
+    """tests/test_torture.py's 30 seeded configurations on the card,
+    through `check_invariants` of tests/test_torch_torture.py (structure,
+    byte-stable serialization, exact length, finite output, chunk-size
+    invariance bit for bit, decode_i16 within 1 LSB of the f32 decode's
+    conversion), each container within the pair contract of the CPU
+    port's; launched rows recorded under each case's rate."""
+    worst = 0.0
+    for case in range(TORTURE_CASES):
+        samples, channels, rate = torture_case(case)
+        with recording_rate(rate):
+            ea = check_invariants(samples, channels, rate, "cuda",
+                                  exact_chunks=True)
+        flips = check_containers(
+            ea, Encoder(rate, device="cpu").encode(samples, channels))
+        worst = max(worst, flips["rate"])
+    print(f"[conformance] torture ({smi}): {TORTURE_CASES} of "
+          f"{TORTURE_CASES} seeded configurations pass every invariant on "
+          f"the card (decode_chunk_frames={SMALL_CHUNK} bit for bit); "
+          f"worst card vs CPU flip rate {worst:.5%}")
+    return {"cases": TORTURE_CASES, "flip_rate": worst}
+
+
+def conformance_flac() -> int:
+    """The RFC 9639 byte literals and the foreign streams of
+    tests/test_torch_flac_conformance.py through the port's native
+    decode_flac and decode_flac_python: the exact samples and parameters;
+    a corrupted CRC rejected by both; the level-0 golden framing and the
+    published CRC check values.  Returns the streams decoded."""
+    decoders = {"native": decode_flac, "python": decode_flac_python}
+    checked = 0
+    cases = [(name, stream, expected, ch, 16)
+             for name, (stream, expected, ch) in SPEC_VECTORS.items()]
+    cases += [(name, build(bitpack), expected, ch, bits)
+              for name, (build, expected, ch, bits) in FOREIGN.items()]
+    for name, data, expected, ch, bits in cases:
+        for dname, decode in decoders.items():
+            got = flac_outcome(decode, data)
+            if got[1:] != (44100, ch, bits) or not np.array_equal(
+                    got[0], np.asarray(expected, np.int64)):
+                raise AssertionError(f"flac {name} ({dname}): {got}")
+            checked += 1
+        bad = bytearray(data)
+        bad[-1] ^= 0xFF
+        for dname, decode in decoders.items():
+            if not isinstance(flac_outcome(decode, bytes(bad))[0], str):
+                raise AssertionError(f"flac {name} ({dname}): a corrupted "
+                                     f"CRC was accepted")
+    if encode_flac_i16_with_level(np.arange(-8, 8, dtype=np.int16), 44100, 1,
+                                  0) != FLAC_GOLDEN:
+        raise AssertionError("flac: level 0 framing != RFC 9639 stream B")
+    if (bitpack.crc8(b"123456789"), bitpack.crc16(b"123456789")) != (
+            0xF4, 0xFEE8):
+        raise AssertionError("flac: CRC check values")
+    print(f"[conformance] FLAC on this machine: {len(cases)} streams "
+          f"({len(SPEC_VECTORS)} RFC 9639 literals, {len(FOREIGN)} foreign) "
+          f"x {len(decoders)} decoders exact, each with a corrupted CRC "
+          f"rejected; level 0 framing == the RFC's bytes; CRC-8/16 check "
+          f"values")
+    return checked
+
+
+def phase_conformance(smi: str) -> dict:
+    """The JAX package's suites' rates, channel counts and random
+    configurations on the card: the CONFORMANCE_RATES x
+    CONFORMANCE_CHANNELS matrix (`conformance_case`), the FULL_SIZE files
+    through the CLI (`conformance_full_size`), the torture sweep
+    (`conformance_torture`) and FLAC conformance (`conformance_flac`);
+    then each kernel against its plain version at every rate's tables on
+    every row count those paths launched it with there
+    (`geometry_kernel_checks`), and its times there beside plain's, the
+    library call's and the bound (`geometry_times`: band_energy's work
+    plan follows the rate's bands).  Returns {kernel: {rate: launches,
+    rows checked, largest |kernel - plain|, times}} and the phase's
+    summary."""
+    RATE_LAUNCHED.clear()
+    launches = {}
+    matrix = {}
+    for rate in CONFORMANCE_RATES:
+        for channels in CONFORMANCE_CHANNELS:
+            res = conformance_case(rate, channels, smi)
+            matrix[f"{rate}x{channels}"] = res
+            per = launches.setdefault(rate, dict.fromkeys(KERNEL_NAMES, 0))
+            for name in KERNEL_NAMES:
+                per[name] += res["launches"][name]
+    full = {label: conformance_full_size(label, seconds, rate, channels, smi)
+            for label, seconds, rate, channels in FULL_SIZE}
+    torture = conformance_torture(smi)
+    flac_checked = conformance_flac()
+    result = {name: {} for name in KERNEL_NAMES}
+    for rate in sorted(RATE_LAUNCHED):
+        rows = RATE_LAUNCHED[rate]
+        if not all(rows.values()):
+            raise AssertionError(f"{rate} Hz: a kernel's launches were not "
+                                 f"recorded: {rows}")
+        err = geometry_kernel_checks(DEFAULT_CONFIG.n, rate, rows,
+                                     tag="conformance")
+        times = geometry_times(DEFAULT_CONFIG.n, rate, smi,
+                               tag="conformance")
+        for name in KERNEL_NAMES:
+            result[name][rate] = {
+                "launches": launches.get(rate, {}).get(name, 0),
+                "rows_checked": sorted(rows[name], reverse=True),
+                "max_abs_err": err[name], **times[name]}
+    for rate in (8000, 22050, 96000):
+        for name in KERNEL_NAMES:
+            if not result[name].get(rate, {}).get("launches"):
+                raise AssertionError(f"{name} not launched at {rate} Hz")
+    summary = {
+        "cases": len(matrix),
+        "max_flip_rate": max(r["flip_rate"] for r in matrix.values()),
+        "max_lsb": max(r["max_lsb"] for r in matrix.values()),
+        "full_size": full, "torture": torture, "flac_streams": flac_checked}
+    print(f"[conformance] {len(matrix)} rate x channel cases, worst flip rate "
+          f"{summary['max_flip_rate']:.5%}, worst {summary['max_lsb']} LSB; "
+          f"every launched row count checked against plain at its rate's "
+          f"tables ({sorted(RATE_LAUNCHED)} Hz)")
+    return {"kernels": result, "summary": summary}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2802,6 +3108,7 @@ def main(argv: list[str]) -> int:
     phase_play_profile(many, smi)
     phase_bench(smi)
     geometry = phase_geometry(smi)
+    conformance = phase_conformance(smi)
     for kernel in KERNEL_NAMES:
         unchecked = LAUNCHED_ROWS[kernel] - set(kern[kernel])
         if not LAUNCHED_ROWS[kernel] or unchecked:
@@ -2847,6 +3154,7 @@ def main(argv: list[str]) -> int:
             entries[-1].update(zip(("device_ms", "device_plain_ms",
                                     "device_library_ms"), device))
         entries[-1]["geometry"] = geometry[kernel]
+        entries[-1]["rates"] = conformance["kernels"][kernel]
     for kernel, wrapper in F64_KERNELS.items():
         at = geometry[kernel][F64_HOP]
         entries.append({
@@ -2865,6 +3173,7 @@ def main(argv: list[str]) -> int:
             "geometry": geometry[kernel],
         })
     entries[0]["sharded"] = sharded
+    entries[0]["conformance"] = conformance["summary"]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
