@@ -13,9 +13,11 @@ Phases, each printing its own line(s):
    second call's seconds;
 3. build  — the three hand-written kernels of glc_tpu_torch/csrc/
    (imdct_window, mdct_rows, band_energy): the registers, spills and
-   shared memory the build gave each, and each mdct_rows tile shape's
-   (the run fails if one spills, or asks for other shared memory than
-   kernels.mdct_smem_bytes says);
+   shared memory the build gave each, each mdct_rows tile shape's, and the
+   f64 path's two kernels' with their tiles and the blocks an SM holds
+   (the run fails if one of the latter two spills, if an mdct_rows tile
+   asks for other shared memory than kernels.mdct_smem_bytes says, or if
+   an f64 build's tile or residency is not kernels.f64_plan's);
 4. kernel — imdct_window (3xTF32 wgmma fed by TMA) against its plain
    PyTorch version at every edge of its 128-row tile (1, 63, 64, 65, 127,
    128, 129), at a ragged 1000, and at every row count the paths below
@@ -156,6 +158,14 @@ Phases, each printing its own line(s):
    3 rounds): exit code 0, and its last line, printed here, the flagship
    encode_realtime_factor_44k_stereo line under 1500 characters with
    "correct": true (the bench's own gate: card vs the port's CPU run);
+21a. f64 path — the f64 path of mdct_rows and imdct_window at full size:
+   the bench's 60 s signal (glc_tpu_torch/bench.py's make_signal_i16,
+   44.1 kHz stereo) through encode_pcm16, decode_i16 and the FLAC export at
+   hop 441 and 256, after a warm-up, each call's launches counted from 0
+   around it (every product launch of the f64 path), the container within
+   the pair contract of the CPU port's, the decode within 1 LSB of the
+   CPU's, the FLAC holding decode_i16's samples; each wall (median of 5)
+   beside the two f64 kernels' device time in a traced call;
 22. geometry — the frame geometries other than the default hop of 1024
    (`GEOMETRIES`: hop 256, 441, 500, 735 and 2048 at 44.1 kHz, 960 at
    48 kHz; frame_size = 2·hop): 10 s of stereo through encode_pcm16 →
@@ -168,11 +178,13 @@ Phases, each printing its own line(s):
    version at that n, at every row count those paths launched it with
    and at the timed rows (the error against float64 no more than twice
    plain's, each row the bits of the same row of the largest launch); at
-   hop 960, 441 and 735 the times of each kernel, its plain version and
+   hop 960, 441, 735 and 256 the times of each kernel, its plain version and
    one library call beside the bound (M = 8192, B = 2816; the products'
    operations at the peak of the unit their path runs on, the FP64 tensor
-   cores at the f64 hops, `bench.product_peak`), and of the
-   copy into the padded pitch where the kernel makes one; and, at each n
+   cores at the f64 hops, `bench.product_peak`), at the f64 hops also the
+   same function's library call (torch.matmul on float64 copies: cuBLAS
+   DGEMM; the widening timed apart), and of the copy into the padded
+   pitch where the kernel makes one; the f64 builds' info line; and, at each n
    of `PATH_NS`, mdct_rows' and imdct_window's errors through the 3xTF32
    tile product and through their f64 path, each over plain's (the f64
    path's, and the path the wrappers take at that n, no more than
@@ -210,8 +222,10 @@ kernel table (launch counts from the main path; times, library time and
 bound at its rows: B = 2816 for imdct_window, M = 8192 for the encode's
 kernels; under
 "geometry" each hop's launches, checked rows and, at 960, 441 and 735,
-times; the f64 path's two kernels with their launches, errors and times
-from the geometry phase at hop 441; under "rates" each rate's launches,
+times; the f64 path's two kernels with their launches on the 60 s path
+at hop 441 (phase 21a), errors and times from the geometry phase at hop
+441, the float64 library call as library_ms and the f32 one beside it;
+under "rates" each rate's launches,
 checked rows, largest difference from plain and times in the
 conformance phase, and under "conformance" its summary),
 and as the last line
@@ -231,10 +245,13 @@ versions in their place, in alternating pairs (`encode_kernels_ab`);
     python3 chip_smoke.py --kernel-ab OTHER_CHECKOUT
 
 runs mdct_rows and band_energy at every row count of the encode paths and
-imdct_window at every row count of the decode paths, at the default n, on
+imdct_window at every row count of the decode paths, at the default n,
+all three at a few row counts at hop 128, 256, 441 and 456, and at the
+cuda tests' row counts at each of their n that takes the f64 path, on
 the same seeded rows in this checkout and in another, in four processes
-(other, this, this, other), fails unless the outputs are the same bits,
-and prints each process's back-to-back times (`kernel_ab`);
+(other, this, this, other), fails unless the outputs are the same bits
+everywhere, and prints each process's back-to-back and single-call times
+(`kernel_ab`);
 
     python3 chip_smoke.py --mdct-plans
 
@@ -242,6 +259,14 @@ times every mdct_rows tile shape back to back at those row counts beside
 the chooser's pick and torch.matmul, and samples the SM clock and power
 while the largest launch runs (`mdct_plans`: the measurement behind
 kernels.mdct_rows_plan);
+
+    python3 chip_smoke.py --f64-plans
+
+times every build of the f64 path (kernels.F64_TILES) of mdct_rows and
+imdct_window at hop 441 and 256 at several row counts, each build's bits
+checked against the wrapper's, beside the chooser's pick and a float64
+torch.matmul, and fits each build's unit time (`f64_plans`: the
+measurement behind kernels.F64_UNIT_US);
 
     python3 chip_smoke.py --path-sweep [OUT.json]
 
@@ -256,6 +281,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import hashlib
+import importlib.util
 import inspect
 import io
 import json
@@ -289,6 +315,7 @@ from glc_tpu_torch.bench import (
     kernel_bound, mdct_bound, quality_metrics, seeded_rows,
 )
 from glc_tpu_torch.bench import make_signal as make_quality_signal
+from glc_tpu_torch.bench import make_signal_i16 as make_bench_signal_i16
 from glc_tpu_torch.codec.decoder import (
     PRODUCER_NAME, chunk_pairs, gapless_trim_bounds,
 )
@@ -333,6 +360,7 @@ from test_torch_api import (  # noqa: E402
 )
 # the n of the cuda tests' every-n cases, whose rows --path-sweep also runs
 from test_torch_kernels import GEOMETRY_NS as TEST_GEOMETRY_NS  # noqa: E402
+from test_torch_kernels import GEOMETRY_ROWS as TEST_GEOMETRY_ROWS  # noqa: E402
 # the conformance phase's program material, torture draws and invariants,
 # and FLAC streams, as the tests hold the port to them
 from test_torch_flac_conformance import FOREIGN, SPEC_VECTORS  # noqa: E402
@@ -382,7 +410,7 @@ GEOMETRIES = (("hop256_44k1", 256, 44100), ("hop441_44k1", 441, 44100),
               ("hop500_44k1", 500, 44100), ("hop735_44k1", 735, 44100),
               ("hop960_48k", 960, 48000), ("hop2048_44k1", 2048, 44100))
 GEOMETRY_SECONDS = 10
-GEOMETRY_TIMED = (960, 441, 735)
+GEOMETRY_TIMED = (960, 441, 735, 256)
 GEOMETRY_TIMED_ROWS = {"imdct_window": 2816, "mdct_rows": 8192,
                        "band_energy": 8192}
 PATH_NS = (1, 8, 120, 256, 441, 456, 457)
@@ -391,6 +419,13 @@ PATH_NS = (1, 8, 120, 256, 441, 456, 457)
 # that line reports
 F64_KERNELS = {"imdct_window_f64": "imdct_window", "mdct_rows_f64": "mdct_rows"}
 F64_HOP = 441
+# The f64 path at full size (phase 21a): the bench's 60 s signal (44.1 kHz
+# stereo) at these hops, all of whose products take the f64 path; the runs
+# of each wall; how the trace names each f64 kernel (its epilogue)
+F64_PATH_HOPS = (441, 256)
+F64_PATH_SECONDS = 60
+F64_PATH_RUNS = 5
+F64_KERNEL_EVENTS = {"mdct_rows_f64": "Scale>", "imdct_window_f64": "Window>"}
 # The conformance phase (23): the rates and channel counts of the JAX
 # package's suites (tests/test_comprehensive.py, tests/test_torture.py),
 # each case CONFORMANCE_SECONDS of program material; realistic files
@@ -402,9 +437,11 @@ CONFORMANCE_SECONDS = 10
 FULL_SIZE = (("5.1 film stem", 120, 48000, 6),
              ("hi-res master", 60, 96000, 2))
 FULL_SIZE_RUNS = 5
-# --kernel-ab's other n (the parent's kernels took these hops too) and
-# their row counts: the geometry phase's timed ones and a few edges
-AB_SMALL_NS = (128, 256)
+# --kernel-ab's other n (the parent's kernels took these hops too: 441
+# and 456 at the f64 path's cut) and their row counts: the geometry
+# phase's timed ones and a few edges; it also runs every n of the cuda
+# tests that takes the f64 path, at the tests' row counts
+AB_SMALL_NS = (128, 256, 441, 456)
 AB_SMALL_ROWS = {"encode": [8192, 646, 63, 1], "decode": [2816, 63, 1]}
 
 
@@ -451,10 +488,13 @@ def phase_warmup():
 
 
 def phase_build(strict: bool = True):
-    """The kernels' build (registers, spills, shared memory), and each
-    mdct_rows tile shape's: fails (if `strict`) on a spill or on a shared
-    memory size that the plan model (kernels.mdct_smem_bytes) does not
-    know; returns a design line per kernel for the kernel phases."""
+    """The kernels' build (registers, spills, shared memory), each
+    mdct_rows tile shape's and the f64 path's two kernels' (with their
+    tiles and the blocks an SM holds): fails (if `strict`) on a spill, on a
+    shared memory size that the plan model (kernels.mdct_smem_bytes) does
+    not know, or on an f64 build whose tile or residency is not the one
+    kernels.f64_plan plans with; returns a design line per kernel for the
+    kernel phases."""
     info = kernels.kernel_info()
     designs = {}
 
@@ -484,6 +524,25 @@ def phase_build(strict: bool = True):
             faults.append(f"{(rows, cols)} asks for {i['dynamic_smem']} B, "
                           f"the plan model "
                           f"{kernels.mdct_smem_bytes(rows, cols)} B")
+    for kernel in ("mdct_rows", "imdct_window"):
+        lines = []
+        for tile in kernels.F64_TILES:
+            i = info[f"{kernel}_f64{tile}"]
+            lines.append(f"tile {tile[0]} x {tile[1]}: {built(i)}, "
+                         f"{i['resident_blocks']} blocks an SM")
+            if i["local_bytes"]:
+                faults.append(f"{kernel} f64 {tile} spills "
+                              f"{i['local_bytes']} B")
+            if (i["tile"] != tile
+                    or i["resident_blocks"] != kernels.F64_RESIDENT[tile]):
+                faults.append(f"{kernel} f64 build {i['tile']} holds "
+                              f"{i['resident_blocks']} blocks an SM, the "
+                              f"plan model's {tile} "
+                              f"{kernels.F64_RESIDENT[tile]}")
+        designs[f"{kernel}_f64"] = (
+            "f64 mma.sync, 16-byte cp.async, tile by M (f64_plan); "
+            + "; ".join(lines))
+        print(f"[build] {kernel} f64 path: {designs[f'{kernel}_f64']}")
     if faults:
         if strict:
             raise AssertionError(f"mdct_rows: {faults}")
@@ -1047,6 +1106,93 @@ def encode_kernels_ab(smi: str, pairs: int = 21) -> None:
           f"faster in {won} of {pairs} pairs")
 
 
+# --f64-plans: the hops and row counts at which it times every f64 build
+F64_PLAN_NS = (441, 256)
+F64_PLAN_ROWS = {"mdct_rows": (8192, 7312, 4096, 2048, 1292, 646, 63, 1),
+                 "imdct_window": (2816, 1424, 1000, 646, 63, 1)}
+
+
+def f64_launch(name: str, x: torch.Tensor, tables, plan) -> torch.Tensor:
+    """One launch of `name`'s f64 kernel on rows x with the plan (rows,
+    cols) given, through its C entry (the wrappers launch
+    kernels.f64_plan's)."""
+    lib = kernels.load_library()
+    M, n = x.shape[0], tables.n
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "mdct_rows":
+        out = torch.empty((M, n), device="cuda")
+        rc = lib.glc_mdct_rows_f64(
+            x.data_ptr(), kernels.f64_table_t(tables.cos_table).data_ptr(),
+            tables.norm.data_ptr(), out.data_ptr(), M, n, *plan, stream)
+    else:
+        out = torch.empty((M, 2 * n), device="cuda")
+        rc = lib.glc_imdct_window_f64(
+            x.data_ptr(), kernels.f64_table(tables.cos_table).data_ptr(),
+            tables.window.data_ptr(), out.data_ptr(), M, n,
+            tables.norm_value, *plan, stream)
+    if rc:
+        raise AssertionError(f"{name} f64 plan {plan}: CUDA error {rc}")
+    return out
+
+
+def f64_plans(smi: str) -> None:
+    """Device time (`device_ms`) of every f64 build (kernels.F64_TILES) of
+    mdct_rows and imdct_window, a block a tile, at F64_PLAN_ROWS at each n
+    of F64_PLAN_NS, each build's output the bits of the wrapper's, beside
+    the chooser's pick and
+    torch.matmul on float64 copies (cuBLAS DGEMM); then each build's unit
+    time fitted over all of them (least squares of time on the model's
+    rounds x k16 steps): the measurement behind kernels.F64_UNIT_US."""
+    sms = card_sms()
+    fit = {tile: ([], []) for tile in kernels.F64_TILES}
+    for n in F64_PLAN_NS:
+        tables = get_codec_tables(n, 2 * n, SAMPLE_RATE, "cuda")
+        for name, rows in F64_PLAN_ROWS.items():
+            N, K = (n, 2 * n) if name == "mdct_rows" else (2 * n, n)
+            x_all = (seeded_rows(max(rows), 2 * n, 2, tables.window)
+                     if name == "mdct_rows" else seeded_rows(max(rows), n, 1))
+            wrapper = mdct_rows if name == "mdct_rows" else imdct_window
+            rest = ((tables.cos_table, tables.norm) if name == "mdct_rows"
+                    else (tables.cos_table, tables.window, tables.norm_value))
+            t64 = tables.cos_table.double()
+            b64 = t64.T.contiguous() if name == "mdct_rows" else t64
+            for M in rows:
+                x = x_all[-M:].clone()
+                want = wrapper(x, *rest)
+                x64 = x.double()
+                times = {}
+                for tile in kernels.F64_TILES:
+                    tiles = kernels.f64_tiles(M, N, *tile)
+                    slots = sms * kernels.F64_RESIDENT[tile]
+                    if not torch.equal(f64_launch(name, x, tables, tile),
+                                       want):
+                        raise AssertionError(f"{name} n={n} M={M} build "
+                                             f"{tile}: other bits")
+                    times[tile] = device_ms(
+                        lambda: f64_launch(name, x, tables, tile))
+                    steps = -(-tiles // slots) * -(-K // 16)
+                    fit[tile][0].append(steps)
+                    fit[tile][1].append(times[tile])
+                pick = kernels.f64_plan(M, N, K, sms)
+                dgemm = device_ms(lambda: torch.matmul(x64, b64))
+                bound = mdct_bound(M, n) if name == "mdct_rows" else \
+                    kernel_bound(M, n)
+                print(f"[f64 plans] {name} n={n} rows={M} ({smi}), back to "
+                      f"back ms: " + ", ".join(
+                          f"{r}x{c} {t:.4f}"
+                          for (r, c), t in times.items())
+                      + f"; the chooser's {pick} {times[pick]:.4f} ms "
+                      f"({bound[0] / times[pick]:.1%} "
+                      f"of the bound {bound[0]:.4f}); the fastest "
+                      f"{min(times, key=times.get)}; float64 torch.matmul "
+                      f"{dgemm:.4f} ms")
+    units = {tile: float(np.dot(x, y) / np.dot(x, x)) * 1e3
+             for tile, (x, y) in fit.items()}
+    print(f"[f64 plans] ({smi}) unit µs a k16 step of a round, fitted: "
+          + ", ".join(f"{tile} {u:.3f}" for tile, u in units.items())
+          + f"; kernels.F64_UNIT_US {kernels.F64_UNIT_US}")
+
+
 def mdct_plans(smi: str) -> None:
     """Device time (`device_ms`) of every mdct_rows tile shape, at the grid
     the chooser would give it, at each row count of the encode paths and
@@ -1111,30 +1257,34 @@ from glc_tpu_torch.ops.kernels import band_energy, imdct_window, mdct_rows
 assert glc_tpu_torch.__file__.startswith(sys.argv[1]), glc_tpu_torch.__file__
 {seeded_rows}
 {device_ms}
+{median_ms}
 out = {{"mdct_rows": {{}}, "imdct_window": {{}}, "band_energy": {{}}}}
 for n, enc, dec in {shapes}:
     tables = get_codec_tables(n, 2 * n, {rate}, "cuda")
     win_all = seeded_rows(max(enc), 2 * n, 2, tables.window)
     coeffs_all = seeded_rows(max(enc), n, 3) * 0.5
     for M in enc:
-        win = win_all[-M:].contiguous()
+        win = win_all[-M:].clone()  # 16-byte aligned at any n
         args = (win, tables.cos_table, tables.norm)
         y = mdct_rows(*args).cpu().numpy()
         out["mdct_rows"][f"{{n}} {{M}}"] = (
             hashlib.sha256(y.tobytes()).hexdigest(),
-            device_ms(lambda: mdct_rows(*args)))
-        bargs = (coeffs_all[-M:].contiguous(), tables.band_mask)
+            device_ms(lambda: mdct_rows(*args)),
+            _median_ms(lambda: mdct_rows(*args)))
+        bargs = (coeffs_all[-M:].clone(), tables.band_mask)
         y = band_energy(*bargs).cpu().numpy()
         out["band_energy"][f"{{n}} {{M}}"] = (
             hashlib.sha256(y.tobytes()).hexdigest(),
-            device_ms(lambda: band_energy(*bargs)))
+            device_ms(lambda: band_energy(*bargs)),
+            _median_ms(lambda: band_energy(*bargs)))
     for B in dec:
         args = (seeded_rows(B, n, 1), tables.cos_table, tables.window,
                 tables.norm_value)
         y = imdct_window(*args).cpu().numpy()
         out["imdct_window"][f"{{n}} {{B}}"] = (
             hashlib.sha256(y.tobytes()).hexdigest(),
-            device_ms(lambda: imdct_window(*args)))
+            device_ms(lambda: imdct_window(*args)),
+            _median_ms(lambda: imdct_window(*args)))
 print(json.dumps(out))
 """
 
@@ -1142,23 +1292,30 @@ print(json.dumps(out))
 def kernel_ab(other: Path, smi: str) -> None:
     """mdct_rows and band_energy at every row count of the encode paths and
     imdct_window at every row count of the decode paths (and the tile
-    edges), at the default n, and all three at AB_SMALL_ROWS at each n
-    of AB_SMALL_NS, on the same seeded rows, in this checkout and in
-    `other` (the parent commit's, say), each in its own process, in the
-    order other, this, this, other.  At the default n, and at any other n
-    where this checkout takes the tile product
-    (`kernels.product_path`), the outputs' SHA-256 must agree in all four
-    (bit for bit); each process's back-to-back device times are
+    edges), at the default n; all three at AB_SMALL_ROWS at each n of
+    AB_SMALL_NS, and at the cuda tests' row counts (TEST_GEOMETRY_ROWS) at
+    each n of theirs that takes the f64 path; on the same seeded rows, in
+    this checkout and in `other` (the parent commit's, say), each in its
+    own process, in the order other, this, this, other.  The outputs'
+    SHA-256 must agree in all four (bit for bit) at every n and row count,
+    on either product path (`kernels.product_path`); each process's
+    back-to-back device times and single-call times (medians of 20) are
     printed."""
     pcm = make_signal()
     enc = sorted(set(encode_rows(pcm)) | set(KERNEL_EDGES), reverse=True)
     dec = sorted(set(path_rows(pcm)) | set(KERNEL_EDGES), reverse=True)
-    shapes = [(DEFAULT_CONFIG.n, enc, dec)] + [
-        (n, AB_SMALL_ROWS["encode"], AB_SMALL_ROWS["decode"])
-        for n in AB_SMALL_NS]
+    f64_ns = {n for n in TEST_GEOMETRY_NS if kernels.product_path(n) == "f64"}
+    shapes = [(DEFAULT_CONFIG.n, enc, dec)]
+    for n in sorted(set(AB_SMALL_NS) | f64_ns):
+        rows = set(TEST_GEOMETRY_ROWS) if n in f64_ns else set()
+        shapes.append((n, sorted(rows | set(AB_SMALL_ROWS["encode"]),
+                                 reverse=True),
+                       sorted(rows | set(AB_SMALL_ROWS["decode"]),
+                              reverse=True)))
     child = _KERNEL_AB_CHILD.format(
         seeded_rows=inspect.getsource(seeded_rows),
-        device_ms=inspect.getsource(device_ms), rate=SAMPLE_RATE,
+        device_ms=inspect.getsource(device_ms),
+        median_ms=inspect.getsource(_median_ms), rate=SAMPLE_RATE,
         shapes=shapes)
     here = Path(__file__).resolve().parent
     runs = []
@@ -1184,14 +1341,88 @@ def kernel_ab(other: Path, smi: str) -> None:
                       f"back ms " + ", ".join(
                           f"{'this' if root == here else 'other'} "
                           f"{r[kernel][k][1]:.4f}" for root, r in runs)
+                      + "; single calls, median of 20, ms " + ", ".join(
+                          f"{'this' if root == here else 'other'} "
+                          f"{r[kernel][k][2]:.4f}" for root, r in runs)
                       + f"; bits {'differ' if k in differ else 'equal'}")
-            if differ and paths[kernel] != "f64":
+            if differ:
                 raise AssertionError(f"{kernel}: this checkout's bits differ "
                                      f"from {other}'s at (n, rows) {differ}")
             print(f"[kernel A/B] {kernel} n={n}: this checkout and {other} "
                   f"give {'different' if differ else 'the same'} bits at "
                   f"{len(differ) if differ else len(counts)} of {len(counts)} "
                   f"row counts, in 4 processes")
+    kernel_ab_pairs(other, smi)
+
+
+# The shapes at which kernel_ab_pairs times the two checkouts in one
+# process: the f64 path's hops at the geometry phase's timed rows
+AB_PAIR_NS = (441, 256)
+AB_PAIRS = 21
+
+
+def kernel_ab_pairs(other: Path, smi: str) -> None:
+    """mdct_rows (M = 8192) and imdct_window (B = 2816) at each n of
+    AB_PAIR_NS in one process, this checkout's wrappers and `other`'s
+    (its ops/kernels.py loaded as a module of its own, its library built
+    from its csrc/): AB_PAIRS alternating pairs of single calls (each timed
+    by CUDA events around the call, the first of a pair alternating), then
+    AB_PAIRS alternating pairs of back-to-back times (`device_ms`); prints
+    each side's median and the pairs each side won; fails unless the two
+    give the same bits."""
+    spec = importlib.util.spec_from_file_location(
+        "other_kernels", other / "glc_tpu_torch" / "ops" / "kernels.py")
+    theirs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(theirs)
+
+    def single(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    for n in AB_PAIR_NS:
+        tables = get_codec_tables(n, 2 * n, SAMPLE_RATE, "cuda")
+        M, B = (GEOMETRY_TIMED_ROWS["mdct_rows"],
+                GEOMETRY_TIMED_ROWS["imdct_window"])
+        cases = {
+            "mdct_rows": (seeded_rows(M, 2 * n, 2, tables.window),
+                          tables.cos_table, tables.norm),
+            "imdct_window": (seeded_rows(B, n, 1), tables.cos_table,
+                             tables.window, tables.norm_value)}
+        for name, args in cases.items():
+            fns = {"this": lambda: getattr(kernels, name)(*args),
+                   "other": lambda: getattr(theirs, name)(*args)}
+            if not torch.equal(fns["this"](), fns["other"]()):
+                raise AssertionError(f"kernel A/B pairs: {name} n={n}: "
+                                     f"other bits")
+            for how, timer in (("single calls", single),
+                               ("back to back", device_ms)):
+                for fn in fns.values():  # warm-up
+                    for _ in range(3):
+                        fn()
+                times = {"this": [], "other": []}
+                for i in range(AB_PAIRS):
+                    order = ("this", "other") if i % 2 else ("other", "this")
+                    for side in order:
+                        times[side].append(timer(fns[side]))
+                won = sum(t < o for t, o in zip(times["this"],
+                                                times["other"]))
+                print(f"[kernel A/B pairs] {name} n={n} "
+                      f"rows={args[0].shape[0]} ({smi}; f64 path), {how}, "
+                      f"{AB_PAIRS} alternating "
+                      f"pairs in one process: this checkout median "
+                      f"{np.median(times['this']):.4f} ms (quartiles "
+                      f"{np.percentile(times['this'], 25):.4f}-"
+                      f"{np.percentile(times['this'], 75):.4f}), {other} "
+                      f"median {np.median(times['other']):.4f} ms (quartiles "
+                      f"{np.percentile(times['other'], 25):.4f}-"
+                      f"{np.percentile(times['other'], 75):.4f}); this "
+                      f"checkout faster in {won} of {AB_PAIRS} pairs; bits "
+                      f"equal")
 
 
 def phase_cpu(pcm: np.ndarray, encoded_cuda, out_cuda):
@@ -2513,7 +2744,11 @@ def geometry_times(n: int, rate: int, smi: str,
     `device_ms`) of each kernel at n, its plain version and one library
     call, beside the bound, at M = 8192 (mdct_rows, band_energy) and
     B = 2816 (imdct_window); and the copy into the padded pitch where the
-    kernel makes one (`kernels.padded_rows`).  Returns {kernel: {...}}."""
+    kernel makes one (`kernels.padded_rows`).  Where the products take
+    their f64 path (`kernels.product_path`), also the same function's
+    library call: torch.matmul on float64 copies of the operands (cuBLAS
+    DGEMM on the f64 tensor cores), the widening of the row operand made
+    outside the timed call and timed apart.  Returns {kernel: {...}}."""
     tables = get_codec_tables(n, 2 * n, rate, "cuda")
     M, B = GEOMETRY_TIMED_ROWS["mdct_rows"], GEOMETRY_TIMED_ROWS["imdct_window"]
     win = seeded_rows(M, 2 * n, 2, tables.window)
@@ -2522,6 +2757,16 @@ def geometry_times(n: int, rate: int, smi: str,
     table_norm = (tables.cos_table * tables.norm).T.contiguous()
     folded = tables.cos_table * (tables.norm_value * tables.window)
     mask = tables.band_mask
+    f64 = kernels.product_path(n) == "f64"
+    if f64:  # the same functions in f64: DGEMM on widened operands
+        win64, dec64 = win.double(), dec.double()
+        table_norm64 = (tables.cos_table.double() * tables.norm_value).T
+        folded64 = tables.cos_table.double() * (
+            tables.norm_value * tables.window.double())
+        widen = {"mdct_rows": (lambda: torch.matmul(win64, table_norm64),
+                               lambda: win.double()),
+                 "imdct_window": (lambda: torch.matmul(dec64, folded64),
+                                  lambda: dec.double())}
     calls = {
         "mdct_rows": (
             lambda: mdct_rows(win, tables.cos_table, tables.norm),
@@ -2555,6 +2800,17 @@ def geometry_times(n: int, rate: int, smi: str,
             entry["pad_copy_ms"] = copy_ms
             copy = (f"; of it, the copy of {tuple(padded.shape)} to pitch "
                     f"{kernels.row_pitch(padded.shape[1])} {copy_ms:.4f} ms")
+        dgemm = ""
+        if f64 and name in widen:
+            dgemm_fn, cast_fn = widen[name]
+            entry.update(library_f64_ms=_median_ms(dgemm_fn),
+                         device_library_f64_ms=device_ms(dgemm_fn),
+                         cast_f64_ms=device_ms(cast_fn))
+            dgemm = (f"; the same function in f64 (torch.matmul on float64 "
+                     f"copies, cuBLAS DGEMM): {entry['library_f64_ms']:.4f} "
+                     f"ms, back to back {entry['device_library_f64_ms']:.4f}"
+                     f" ms, the widening of {tuple(padded.shape)} apart "
+                     f"{entry['cast_f64_ms']:.4f} ms")
         out[name] = entry
         print(f"[{tag}] {name} n={n} rows={rows} ({rate} Hz tables; {smi}), "
               f"median of 20: "
@@ -2562,7 +2818,7 @@ def geometry_times(n: int, rate: int, smi: str,
               f"plain {ms[1]:.4f} ms, library {ms[2]:.4f} ms; back to back: "
               f"kernel {device[0]:.4f} ms ({bound[0] / device[0]:.1%} of the "
               f"bound), plain {device[1]:.4f} ms, library {device[2]:.4f} ms; "
-              f"bound {bound[0]:.4f} ms ({bound[1]}){copy}")
+              f"bound {bound[0]:.4f} ms ({bound[1]}){copy}{dgemm}")
     return out
 
 
@@ -2745,6 +3001,121 @@ def path_sweep(smi: str, out_path: str | None) -> None:
             {"card": smi, "rows": SWEEP_ROWS, "cut": cut, "ratios": per_n}))
 
 
+def f64_kernels_ms(fn, span: str) -> tuple[float, dict]:
+    """One call of `fn` under the profiler as the span `span`: its wall
+    (ms) and the card's time in each f64 kernel (`F64_KERNEL_EVENTS`)
+    inside it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp), profiling.annotate(span):
+            fn()
+        (trace,) = Path(tmp).glob("*.pt.trace.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+    (sp,) = [e for e in events if e.get("name") == span
+             and e.get("cat") == "user_annotation"]
+    t0, t1 = sp["ts"], sp["ts"] + sp["dur"]
+    return sp["dur"] / 1e3, {
+        name: device_busy_ms(
+            [e for e in events if e.get("cat") == "kernel"
+             and "f64rows::rows_kernel" in e.get("name", "")
+             and mark in e["name"]], t0, t1)
+        for name, mark in F64_KERNEL_EVENTS.items()}
+
+
+def phase_f64_path(smi: str) -> dict:
+    """The f64 path at full size: the bench's 60 s signal (`make_signal_i16`
+    of glc_tpu_torch/bench.py, 44.1 kHz stereo) through
+    Encoder.encode_pcm16, Decoder.decode_i16 and the FLAC export
+    (`export_flac`) on the card at each hop of F64_PATH_HOPS, after a
+    warm-up; each call's launches counted from 0 around it (one mdct_rows
+    and one band_energy launch a segment, one imdct_window launch a decode
+    or stream chunk, the products' all of their f64 path); the container
+    within the pair contract of the CPU port's, decode_i16 within 1 LSB of
+    the CPU port's decode of the same container, the export's FLAC
+    decoding to decode_i16's samples; each wall (median of F64_PATH_RUNS)
+    beside the two f64 kernels' device time in one traced call
+    (`f64_kernels_ms`).  Returns {hop: launches, walls, kernel times}."""
+    pcm = make_bench_signal_i16(F64_PATH_SECONDS)
+    out_all = {}
+    for hop in F64_PATH_HOPS:
+        if kernels.product_path(hop) != "f64":
+            raise AssertionError(f"hop {hop} does not take the f64 path")
+        cfg = replace(DEFAULT_CONFIG, hop_size=hop, frame_size=2 * hop)
+        plan = upload_geometry(len(pcm), 2, cfg)[3]
+        enc = Encoder(SAMPLE_RATE, config=cfg, device="cuda")
+        dec = Decoder(2, SAMPLE_RATE, config=cfg, device="cuda")
+        encoded = enc.encode_pcm16(pcm, 2)  # warm-up of all three calls
+        dec.decode_i16(encoded)
+        export_flac(dec, encoded)
+        calls = {"encode": lambda: enc.encode_pcm16(pcm, 2),
+                 "decode": lambda: dec.decode_i16(encoded),
+                 "export": lambda: export_flac(dec, encoded)}
+        results, counts = {}, {}
+        for name, call in calls.items():
+            reset_launches()
+            results[name] = call()
+            counts[name] = {**launch_counts(), **{
+                f64: getattr(kernels, wrapper).f64_launches
+                for f64, wrapper in F64_KERNELS.items()}}
+        chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
+        stream = decode_chunks([encoded], cfg.stream_chunk_frames)
+        want = {"encode": (len(plan), len(plan), 0),
+                "decode": (0, 0, chunks), "export": (0, 0, stream)}
+        for name, (segs, bands, imdct) in want.items():
+            c = counts[name]
+            got = (c["mdct_rows"], c["band_energy"], c["imdct_window"],
+                   c["mdct_rows_f64"], c["imdct_window_f64"])
+            if got != (segs, bands, imdct, segs, imdct):
+                raise AssertionError(
+                    f"hop {hop} {name}: launches {c}, the geometry says "
+                    f"{segs} segments, {imdct} imdct_window chunks, all f64")
+        if serialize_encoded(results["encode"]) != serialize_encoded(encoded):
+            raise AssertionError(f"hop {hop}: two encodes of one input differ")
+        flips = check_containers(
+            encoded,
+            Encoder(SAMPLE_RATE, config=cfg, device="cpu").encode_pcm16(
+                pcm, 2), n=hop)
+        out = results["decode"]
+        out_cpu = Decoder(2, SAMPLE_RATE, config=cfg,
+                          device="cpu").decode_i16(encoded)
+        lsb = int(np.abs(out_cpu.astype(np.int32)
+                         - out.astype(np.int32)).max())
+        if lsb > 1 or len(out) != len(pcm):
+            raise AssertionError(f"hop {hop}: card vs CPU decode {lsb} LSB, "
+                                 f"{len(out)} of {len(pcm)} samples")
+        samples, rate, channels, _bps = decode_flac(results["export"])
+        if (rate, channels) != (SAMPLE_RATE, 2) or not np.array_equal(
+                samples, out.astype(np.int32)):
+            raise AssertionError(f"hop {hop}: the FLAC export does not hold "
+                                 f"decode_i16's samples")
+        walls, traced = {}, {}
+        for name, call in calls.items():
+            walls[name] = float(np.median(
+                [_wall(call) * 1e3 for _ in range(F64_PATH_RUNS)]))
+            traced[name] = f64_kernels_ms(call, f"f64_path_{name}")
+        out_all[hop] = {"launches": counts, "walls_ms": walls,
+                        "flip_rate": flips["rate"], "lsb": lsb,
+                        "traced": {k: {"wall_ms": w, "kernels_ms": ms}
+                                   for k, (w, ms) in traced.items()}}
+        print(f"[f64 path] hop {hop}, the bench's {F64_PATH_SECONDS} s 44.1 "
+              f"kHz stereo ({smi}): segments {[k for _s, k in plan]}, "
+              f"{chunks} decode and {stream} stream chunks; card vs CPU "
+              f"{flips['gate']} keep-gate and {flips['pm1']} +-1 flips of "
+              f"{flips['kept']} kept (rate {flips['rate']:.5%}), decode_i16 "
+              f"max {lsb} LSB, the FLAC holds decode_i16's samples; "
+              + "; ".join(
+                  f"{name}: wall {walls[name]:.2f} ms (median of "
+                  f"{F64_PATH_RUNS}), launches mdct_rows_f64 "
+                  f"{counts[name]['mdct_rows_f64']}, imdct_window_f64 "
+                  f"{counts[name]['imdct_window_f64']}; traced call "
+                  f"{traced[name][0]:.2f} ms, of it on the card "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                              traced[name][1].items())
+                  + f" ({sum(traced[name][1].values()) / walls[name]:.2%} "
+                  f"of the median wall)"
+                  for name in calls))
+    return out_all
+
+
 def phase_geometry(smi: str) -> dict:
     """The frame geometries of GEOMETRIES through the card's kernels: each
     round trip with its launches counted (`geometry_round_trip`), each
@@ -2754,6 +3125,17 @@ def phase_geometry(smi: str) -> dict:
     (`product_paths`).  Returns {kernel: {n: launches, errors and
     times}}, the f64 path's kernels (`F64_KERNELS`) at the hops that take
     it."""
+    info = kernels.kernel_info()
+    for kernel in ("mdct_rows", "imdct_window"):
+        print(f"[geometry] {kernel}'s f64 path (csrc/f64_rows.cuh; {smi}): "
+              + "; ".join(
+                  f"tile {i['tile'][0]} x {i['tile'][1]}: {i['registers']} "
+                  f"regs/thread, {i['local_bytes']} B local (spills), smem "
+                  f"{i['static_smem']} B static + {i['dynamic_smem']} B "
+                  f"dynamic, {i['stages']} stages, {i['resident_blocks']} "
+                  f"blocks an SM"
+                  for i in (info[f"{kernel}_f64{t}"]
+                            for t in kernels.F64_TILES)))
     launches = {}
     for _name, hop, rate in GEOMETRIES:
         launches[hop] = geometry_round_trip(hop, rate, smi)
@@ -3067,13 +3449,18 @@ def main(argv: list[str]) -> int:
         phase_build(strict=False)
         mdct_plans(smi)
         return 0
+    if argv == ["--f64-plans"]:
+        phase_build(strict=False)
+        f64_plans(smi)
+        return 0
     if argv[:1] == ["--path-sweep"] and len(argv) <= 2:
         path_sweep(smi, argv[1] if len(argv) == 2 else None)
         return 0
     if argv:
         print("usage: python3 chip_smoke.py [--encode-ab OTHER_CHECKOUT | "
               "--encode-kernels-ab | --kernel-ab OTHER_CHECKOUT | "
-              "--mdct-plans | --path-sweep [OUT.json]]", file=sys.stderr)
+              "--mdct-plans | --f64-plans | --path-sweep [OUT.json]]",
+              file=sys.stderr)
         return 2
     record_launch_rows()
     phase_warmup()
@@ -3107,6 +3494,7 @@ def main(argv: list[str]) -> int:
     phase_profile(encoded, out)
     phase_play_profile(many, smi)
     phase_bench(smi)
+    f64_path = phase_f64_path(smi)
     geometry = phase_geometry(smi)
     conformance = phase_conformance(smi)
     for kernel in KERNEL_NAMES:
@@ -3155,6 +3543,9 @@ def main(argv: list[str]) -> int:
                                     "device_library_ms"), device))
         entries[-1]["geometry"] = geometry[kernel]
         entries[-1]["rates"] = conformance["kernels"][kernel]
+    # the f64 path's kernels: launches from the 60 s path at F64_HOP, the
+    # library call the same function's (float64 torch.matmul), the f32
+    # one beside it
     for kernel, wrapper in F64_KERNELS.items():
         at = geometry[kernel][F64_HOP]
         entries.append({
@@ -3162,14 +3553,23 @@ def main(argv: list[str]) -> int:
             "route": "cuda",
             "source": "glc_tpu_torch/csrc/f64_rows.cuh",
             "replaces": table[wrapper][1],
-            "launches": at["launches"],
+            "launches": sum(c[kernel] for c in
+                            f64_path[F64_HOP]["launches"].values()),
             "max_abs_err": max(g["max_abs_err"]
                                for g in geometry[kernel].values()),
             **{key: at[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "rows", "device_ms", "device_plain_ms",
-                "device_library_ms")},
+                "ms", "plain_ms", "bound_ms", "bound_by", "rows",
+                "device_ms", "device_plain_ms", "cast_f64_ms")},
+            "library_ms": at["library_f64_ms"],
+            "device_library_ms": at["device_library_f64_ms"],
+            "library_f32_ms": at["library_ms"],
+            "device_library_f32_ms": at["device_library_ms"],
             "hop": F64_HOP,
+            "design": designs[kernel],
+            "f64_path": {hop: {"launches": {
+                call: c[kernel] for call, c in r["launches"].items()},
+                "walls_ms": r["walls_ms"],
+                "traced": r["traced"]} for hop, r in f64_path.items()},
             "geometry": geometry[kernel],
         })
     entries[0]["sharded"] = sharded

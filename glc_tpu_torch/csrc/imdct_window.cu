@@ -151,18 +151,29 @@ extern "C" int glc_imdct_window(const float* coeffs, const float* table_hi,
 // The f64 path (f64_rows.cuh; the wrapper takes it at the n where the tile
 // product fails its error bar): out[b, t] = ((coeffs[b] . cos_table[:, t])
 // * norm) * window[t] in f64, rounded once to f32.  coeffs [B, n]
-// contiguous, cos_table [n, 2n] f32 (the table itself, a warp's threads on
-// neighbouring floats of a row), window [2n], out [B, 2n].  Any
-// 1 <= n <= 8192; returns a cudaError_t as an int.
-extern "C" int glc_imdct_window_f64(const float* coeffs, const float* cos_table,
+// contiguous, any 4-byte alignment; table [n, pitch_of(2n)] the cos table
+// itself, zeros right of 2n (ops/kernels.py::f64_table), 16-byte aligned;
+// window [2n]; out [B, 2n].  The build of block tile rows x cols
+// (ops/kernels.py::f64_plan), a block a tile.  Any 1 <= n <= 8192; returns
+// a cudaError_t as an int.
+extern "C" int glc_imdct_window_f64(const float* coeffs, const float* table,
                                     const float* window, float* out, int B,
-                                    int n, float norm, void* stream) {
+                                    int n, float norm, int rows, int cols,
+                                    void* stream) {
   if (B < 0 || n < 1 || n > MAX_N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  return f64rows::launch(coeffs, n, cos_table, 1, 2 * n, out, B, 2 * n, n,
-                      Window{norm, window}, static_cast<cudaStream_t>(stream));
+  return f64rows::dispatch<f64rows::Launch>(
+      rows, cols, coeffs, n, table, pitch_of(2 * n), out, B, 2 * n, n,
+      Window{norm, window}, static_cast<cudaStream_t>(stream));
+}
+
+// What the build of block tile rows x cols made of the f64 path's kernel:
+// info[0..7] as f64rows::info_of gives them.  Returns a cudaError_t as an
+// int.
+extern "C" int glc_imdct_window_f64_info(int rows, int cols, int* info) {
+  return f64rows::dispatch<f64rows::Info<Window>>(rows, cols, info);
 }
 
 // What the build made of the kernel: info[0..4] = registers a thread, local

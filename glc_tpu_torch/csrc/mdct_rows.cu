@@ -474,19 +474,29 @@ extern "C" int glc_mdct_rows_plan_info(int rows, int cols, int* info) {
 
 // The f64 path (f64_rows.cuh; the wrapper takes it at the n where the tile
 // product fails its error bar): out[m, k] = (win[m] . cos_table[k]) * *norm
-// in f64, rounded once to f32.  win [M, 2n] contiguous, table_t [2n, n]
-// the transposed cos table in f32 (not its split: a warp's threads, on
-// neighbouring k, read neighbouring floats), norm one f32 in device memory,
-// out [M, n].  Any 1 <= n <= 8192; returns a cudaError_t as an int.
+// in f64, rounded once to f32.  win [M, 2n] contiguous, any 4-byte
+// alignment; table_t [2n, pitch_of(n)] the transposed cos table, zeros
+// right of n (ops/kernels.py::f64_table_t), 16-byte aligned; norm one f32
+// in device memory; out [M, n].  The build of block tile rows x cols
+// (ops/kernels.py::f64_plan), a block a tile.  Any 1 <= n <= 8192; returns
+// a cudaError_t as an int.
 extern "C" int glc_mdct_rows_f64(const float* win, const float* table_t,
                                  const float* norm, float* out, int M, int n,
-                                 void* stream) {
+                                 int rows, int cols, void* stream) {
   if (M < 0 || n < 1 || n > MAX_N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
-  return f64rows::launch(win, 2 * n, table_t, 1, n, out, M, n, 2 * n,
-                      Scale{norm}, static_cast<cudaStream_t>(stream));
+  return f64rows::dispatch<f64rows::Launch>(
+      rows, cols, win, 2 * n, table_t, pitch_of(n), out, M, n, 2 * n,
+      Scale{norm}, static_cast<cudaStream_t>(stream));
+}
+
+// What the build of block tile rows x cols made of the f64 path's kernel:
+// info[0..7] as f64rows::info_of gives them.  Returns a cudaError_t as an
+// int.
+extern "C" int glc_mdct_rows_f64_info(int rows, int cols, int* info) {
+  return f64rows::dispatch<f64rows::Info<Scale>>(rows, cols, info);
 }
 
 // The default large-M plan's (128, 128), as the other kernels report theirs.

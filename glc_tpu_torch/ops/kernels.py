@@ -27,10 +27,17 @@ the splits are made at that pitch (zero padded), and a row input whose
 width is no multiple of 4 is copied once a launch (`padded_rows`).  At
 the n where the tile product's error passes twice the plain version's on
 some rows (`product_path`), the two take their f64 path instead
-(``csrc/f64_rows.cuh``: products and sums in f64 on the CUDA cores, one
-rounding to f32), which reads the f32 table (`table_t` the transposed one
-for `mdct_rows`).  `mdct_rows` launches the
-tile plan `mdct_rows_plan` picks for its row count (`MdctPlan`: a tile
+(``csrc/f64_rows.cuh``): each f32 product exact in f64 and summed in f64
+on the f64 tensor cores (``mma.sync`` m16n8k16 f64), one rounding to f32.
+Its kernels keep both operands f32 in memory and widen them as a warp
+loads its fragments; they copy the row input in aligned 16-byte blocks at
+any pitch and offset (no padded copy), and the table at a 16-byte pitch,
+made once per table tensor (`f64_table` the table itself for
+`imdct_window`, `f64_table_t` the transposed one for `mdct_rows`).  They
+launch the build `f64_plan` picks by the row count (`F64Plan`: a block
+tile of `F64_TILES`, 16 or 32 rows by 64 columns, a block a tile); every
+build gives the same bits.  `mdct_rows`' tile product launches
+the tile plan `mdct_rows_plan` picks for its row count (`MdctPlan`: a tile
 shape of `MDCT_TILES` and a persistent grid); every plan gives the same
 bits.  `band_energy` reads its work plan, `band_plan` (each band's bins cut
 into items of `BAND_CHUNK` bins, the items given to a warp's lanes), made
@@ -45,12 +52,15 @@ under ``csrc/`` and of the nvcc flags, so an edit of either rebuilds it.
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it always launches its kernel or raises.  ``<wrapper>.launches`` counts
 each wrapper's launches, ``<wrapper>.f64_launches`` those of them that
-took the f64 kernel, ``<split>.splits`` the table splits.
+took the f64 kernel, ``<split>.splits`` the table splits and
+``f64_table.copies`` / ``f64_table_t.copies`` the f64 path's table
+copies.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -179,16 +189,20 @@ def load_library() -> ctypes.CDLL:
             i32, i32, i32, ptr,       # the plan's rows, cols, grid; stream
         ]
         lib.glc_imdct_window_f64.argtypes = [
-            ptr, ptr, ptr, ptr,     # coeffs, cos_table, window, out
+            ptr, ptr, ptr, ptr,     # coeffs, f64_table, window, out
             i32, i32, c.c_float,    # B, n, norm
-            ptr,                    # stream
+            i32, i32, ptr,          # the plan's rows, cols; stream
         ]
         lib.glc_mdct_rows_f64.argtypes = [
-            ptr, ptr, ptr, ptr,     # win, table_t, norm, out
-            i32, i32, ptr,          # M, n, stream
+            ptr, ptr, ptr, ptr,     # win, f64_table_t, norm, out
+            i32, i32,               # M, n
+            i32, i32, ptr,          # the plan's rows, cols; stream
         ]
         for name in ("glc_imdct_window_f64", "glc_mdct_rows_f64"):
             getattr(lib, name).restype = i32
+            info = getattr(lib, f"{name}_info")
+            info.restype = i32
+            info.argtypes = [i32, i32, c.POINTER(i32)]
         lib.glc_mdct_rows_plan_info.restype = i32
         lib.glc_mdct_rows_plan_info.argtypes = [i32, i32, c.POINTER(i32)]
         lib.glc_band_energy.argtypes = [
@@ -209,7 +223,10 @@ def kernel_info() -> Dict[str, Dict[str, int]]:
     """What the build made of each kernel (needs a CUDA device): registers
     and local (spill) bytes a thread, static and dynamic shared memory a
     block, pipeline stages; for `mdct_rows` the default plan's, and each
-    tile shape's under ``"mdct_rows(rows, cols)"``."""
+    tile shape's under ``"mdct_rows(rows, cols)"``; for each build of the
+    f64 path's kernels (``"mdct_rows_f64(rows, cols)"``,
+    ``"imdct_window_f64(rows, cols)"``) also the blocks an SM holds and the
+    block tile's rows and columns."""
     lib = load_library()
     out = {name: _info(getattr(lib, f"glc_{name}_info"), name)
            for name in KERNELS}
@@ -217,17 +234,25 @@ def kernel_info() -> Dict[str, Dict[str, int]]:
         out[f"mdct_rows{(rows, cols)}"] = _info(
             lambda info: lib.glc_mdct_rows_plan_info(rows, cols, info),
             f"mdct_rows plan {(rows, cols)}")
+    for name in ("mdct_rows", "imdct_window"):
+        for rows, cols in F64_TILES:
+            out[f"{name}_f64{(rows, cols)}"] = _info(
+                lambda info: getattr(lib, f"glc_{name}_f64_info")(
+                    rows, cols, info), f"{name} f64 {(rows, cols)}", f64=True)
     return out
 
 
-def _info(fn, name: str) -> Dict[str, int]:
-    info = (ctypes.c_int * 5)()
+def _info(fn, name: str, f64: bool = False) -> Dict[str, int]:
+    info = (ctypes.c_int * 8)()
     rc = fn(info)
     if rc != 0:
         raise RuntimeError(f"{name} info failed: CUDA error {rc}")
-    return {"registers": info[0], "local_bytes": info[1],
-            "static_smem": info[2], "dynamic_smem": info[3],
-            "stages": info[4]}
+    out = {"registers": info[0], "local_bytes": info[1],
+           "static_smem": info[2], "dynamic_smem": info[3],
+           "stages": info[4]}
+    if f64:
+        out.update(resident_blocks=info[5], tile=(info[6], info[7]))
+    return out
 
 
 def _rows_matmul(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -272,7 +297,8 @@ def _cached(cache: WeakTensorKeyDictionary, key: torch.Tensor, make):
 
 _SPLITS = WeakTensorKeyDictionary()
 _COS_SPLITS = WeakTensorKeyDictionary()
-_TRANSPOSED = WeakTensorKeyDictionary()
+_F64_TABLES = WeakTensorKeyDictionary()
+_F64_TABLES_T = WeakTensorKeyDictionary()
 _PLANS = WeakTensorKeyDictionary()
 _SCALARS = WeakTensorKeyDictionary()
 
@@ -333,10 +359,33 @@ def cos_split(cos_table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 cos_split.splits = 0
 
 
-def table_t(cos_table: torch.Tensor) -> torch.Tensor:
-    """``cos_table.T`` [2n, n] contiguous, in f32: the table of
-    `mdct_rows`' f64 path, cached like the splits."""
-    return _cached(_TRANSPOSED, cos_table, lambda t: t.t().contiguous())[0]
+def f64_table(cos_table: torch.Tensor) -> torch.Tensor:
+    """``cos_table`` [n, row_pitch(2n)] contiguous, zeros right of 2n: the
+    table `imdct_window`'s f64 path copies by 16-byte cp.async; the table
+    itself at an even n, else a copy made once per table tensor (and again
+    only if it is changed in place) and held as long as the table lives;
+    ``f64_table.copies`` counts the copies made.  It stays f32: the kernel
+    widens it exactly as it loads its fragments."""
+    if cos_table.shape[1] % 4 == 0 and cos_table.is_contiguous():
+        return cos_table
+    t, made = _cached(_F64_TABLES, cos_table, padded_rows)
+    f64_table.copies += made
+    return t
+
+
+f64_table.copies = 0
+
+
+def f64_table_t(cos_table: torch.Tensor) -> torch.Tensor:
+    """``cos_table.T`` [2n, row_pitch(n)] contiguous, zeros right of n: the
+    table of `mdct_rows`' f64 path, cached like `f64_table` but apart from
+    it; ``f64_table_t.copies`` counts the copies made."""
+    t, made = _cached(_F64_TABLES_T, cos_table, lambda t: padded_rows(t.t()))
+    f64_table_t.copies += made
+    return t
+
+
+f64_table_t.copies = 0
 
 
 def _ranges_of(band_mask: torch.Tensor) -> np.ndarray:
@@ -554,6 +603,56 @@ def mdct_rows_tiles(M: int, n: int, plan: MdctPlan) -> np.ndarray:
     return np.concatenate(out)
 
 
+class F64Plan(NamedTuple):
+    """How an f64 path kernel cuts its output [M, N] (csrc/f64_rows.cuh):
+    tiles of `rows` x `cols` (one of `F64_TILES`, the builds' block tiles),
+    a block a tile, block b taking tile b, columns fastest.  Every plan
+    gives each element the same bits."""
+
+    rows: int
+    cols: int
+
+
+# The f64 path's builds (csrc/f64_rows.cuh Tile16, Tile32), each block
+# tile (rows, cols) with the blocks an SM holds (chip_smoke fails where the
+# build's info says otherwise) and the device time (µs) of one k16 step of
+# a round of tiles, all SMs holding their blocks, back to back: `python3
+# chip_smoke.py --f64-plans` on an NVIDIA H100 80GB HBM3 at 700 W, fitted
+# over both kernels at hop 441 and 256 (at every row count it timed, the
+# model picked the faster build)
+F64_RESIDENT = {(16, 64): 3, (32, 64): 4}
+F64_UNIT_US = {(16, 64): 0.396, (32, 64): 0.691}
+F64_TILES = tuple(F64_UNIT_US)
+
+
+def f64_tiles(M: int, N: int, rows: int, cols: int) -> int:
+    """The tiles of rows x cols that cover [M, N] (the last row and column
+    tiles may reach past M and N: nothing is stored there)."""
+    return -(-M // rows) * -(-N // cols)
+
+
+def f64_plan_us(M: int, N: int, K: int, rows: int, cols: int,
+                sms: int) -> float:
+    """The model's time (µs) for the build of block tile rows x cols on
+    [M, N] over K: its rounds of tiles (all SMs holding F64_RESIDENT blocks
+    each) times the unit's time, scaled by the k16 steps."""
+    tiles = f64_tiles(M, N, rows, cols)
+    rounds = -(-tiles // (sms * F64_RESIDENT[rows, cols]))
+    return rounds * F64_UNIT_US[rows, cols] * -(-K // 16)
+
+
+@functools.lru_cache(maxsize=4096)
+def f64_plan(M: int, N: int, K: int, sms: int) -> F64Plan:
+    """The plan an f64 path kernel launches on an output [M, N] over K on a
+    card of `sms` SMs: the build the model (`f64_plan_us`) finds fastest,
+    the smaller tile on a tie.  Kept per shape: a launch's host time is
+    part of a single call's."""
+    if M < 1 or N < 1 or K < 1 or sms < 1:
+        raise ValueError(f"no f64 plan for M={M}, N={N}, K={K}, sms={sms}")
+    return F64Plan(*min(F64_TILES,
+                        key=lambda t: f64_plan_us(M, N, K, *t, sms)))
+
+
 _SMS: Dict[int, int] = {}
 
 
@@ -584,15 +683,24 @@ def band_energy_reference(coeffs: torch.Tensor,
     return _rows_matmul(coeffs * coeffs, band_mask.T)
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device,
+           align: int = 16) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the input on {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte "
+                         f"aligned")
+
+
+# The alignment (bytes) each product path needs of its row input: TMA reads
+# the tile product's from 16-byte aligned rows; the f64 path copies the
+# aligned 16-byte blocks that hold its rows, at any f32 offset
+# (csrc/f64_rows.cuh)
+_ROW_ALIGN = {"tiles": 16, "f64": 4}
 
 
 def _rows_of(name: str, x: torch.Tensor) -> Tuple[int, int]:
@@ -640,7 +748,9 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     by `host_scalar`).  A CPU
     `coeffs` takes `imdct_window_reference`; a CUDA one launches the kernel
     on the current stream or raises: the product `path` names (one of
-    `PRODUCT_PATHS`; default `product_path(n)`).
+    `PRODUCT_PATHS`; default `product_path(n)`), the f64 path with the
+    build `f64_plan` picks.  Contiguous coeffs, 16-byte aligned for the
+    tile product, any f32 alignment for the f64 path.
     """
     path = _path_of(path, coeffs.shape[-1] if coeffs.dim() else 0)
     if coeffs.device.type == "cpu":
@@ -652,7 +762,7 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     B, n = coeffs.shape
     _check_n("imdct_window", n)
     dev = coeffs.device
-    _check("coeffs", coeffs, (B, n), dev)
+    _check("coeffs", coeffs, (B, n), dev, _ROW_ALIGN[path])
     _check("cos_table", cos_table, (n, 2 * n), dev)
     _check("window", window, (2 * n,), dev)
     out = torch.empty((B, 2 * n), dtype=torch.float32, device=dev)
@@ -661,8 +771,9 @@ def imdct_window(coeffs: torch.Tensor, cos_table: torch.Tensor,
     lib = load_library()
     if path == "f64":
         rc = lib.glc_imdct_window_f64(
-            coeffs.data_ptr(), cos_table.data_ptr(), window.data_ptr(),
-            out.data_ptr(), B, n, host_scalar(norm), _stream(dev))
+            coeffs.data_ptr(), f64_table(cos_table).data_ptr(),
+            window.data_ptr(), out.data_ptr(), B, n, host_scalar(norm),
+            *f64_plan(B, 2 * n, n, _sms(dev)), _stream(dev))
     else:
         table_hi, table_lo = table_split(cos_table)
         coeffs = padded_rows(coeffs)
@@ -694,14 +805,16 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
     `mdct_rows_reference`, and a CUDA one launches the kernel on the
     current stream or raises: the product `path` names (one of
     `PRODUCT_PATHS`; default `product_path(n)`), the tile product with
-    `plan` (default: `mdct_rows_plan` for the card; the f64 kernel has
-    none and checks it only).  Each row's result is the same bits at any
-    M and plan.
+    `plan` (default: `mdct_rows_plan` for the card; the f64 path takes
+    `f64_plan`'s build and checks `plan` only).  win 16-byte aligned for
+    the tile product, any f32 alignment for the f64 path.  Each row's
+    result is the same bits at any M and plan.
     """
     M, width = _rows_of("mdct_rows", win)
     n = width // 2
     dev = win.device
-    _check("win", win, (M, 2 * n), dev)
+    path = _path_of(path, n)
+    _check("win", win, (M, 2 * n), dev, _ROW_ALIGN[path])
     _check("cos_table", cos_table, (n, 2 * n), dev)
     if torch.is_tensor(norm) and (norm.device != dev or norm.numel() != 1
                                   or norm.dtype != torch.float32):
@@ -709,7 +822,6 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
                          f"{norm.dtype}{tuple(norm.shape)} on {norm.device}")
     if plan is not None and M:
         check_mdct_plan(plan, M, n)
-    path = _path_of(path, n)
     if dev.type == "cpu":
         return mdct_rows_reference(win, cos_table, norm)
     _check_n("mdct_rows", n)
@@ -721,8 +833,9 @@ def mdct_rows(win: torch.Tensor, cos_table: torch.Tensor, norm,
     lib = load_library()
     if path == "f64":
         rc = lib.glc_mdct_rows_f64(
-            win.data_ptr(), table_t(cos_table).data_ptr(), norm.data_ptr(),
-            out.data_ptr(), M, n, _stream(dev))
+            win.data_ptr(), f64_table_t(cos_table).data_ptr(),
+            norm.data_ptr(), out.data_ptr(), M, n,
+            *f64_plan(M, n, 2 * n, _sms(dev)), _stream(dev))
     else:
         if plan is None:
             plan = mdct_rows_plan(M, n, _sms(dev))

@@ -59,6 +59,8 @@ from glc_tpu_torch.ops.kernels import (  # noqa: E402
     table_split,
 )
 from glc_tpu_torch.parity import check_containers  # noqa: E402
+# the f64 path's edge rows, as the imdct_window tests take them
+from test_torch_kernels import f64_edge_rows  # noqa: E402
 
 N, FRAME, RATE = 1024, 2048, 44100
 TOL = 2e-5
@@ -538,6 +540,26 @@ def test_band_energy_rejects_bad_inputs(tables):
             band_energy(c, m)
 
 
+@pytest.mark.parametrize("n", [1, 256, 441])
+def test_f64_path_takes_rows_at_any_f32_alignment(n):
+    """The f64 path copies its row input in aligned 16-byte blocks, so its
+    wrappers take rows that start 4, 8 or 12 bytes past a 16-byte boundary
+    (a slice of a larger tensor) at the n it serves, on either device; the
+    tile product's TMA still needs 16 (its checks are unchanged)."""
+    tb = get_codec_tables(n, 2 * n, RATE, "cpu")
+    for shift in (1, 2, 3):
+        flat = torch.zeros(3 * 2 * n + 4)
+        win = flat[shift:shift + 3 * 2 * n].view(3, 2 * n)
+        win.copy_(torch.from_numpy(np.random.default_rng(shift)
+                                   .standard_normal((3, 2 * n))
+                                   .astype(np.float32)))
+        assert win.data_ptr() % 16 == 4 * shift
+        assert torch.equal(mdct_rows(win, tb.cos_table, tb.norm),
+                           mdct_rows_reference(win, tb.cos_table, tb.norm))
+        with pytest.raises(ValueError, match="16-byte"):
+            mdct_rows(win, tb.cos_table, tb.norm, path="tiles")
+
+
 def test_mdct_rows_rejects_a_bad_plan(tables):
     """A plan must be a built tile shape with a grid of 1 to its units; the
     check runs on either device (on the CPU the plan is otherwise unused)."""
@@ -677,6 +699,73 @@ def test_mdct_rows_plan_refuses_what_no_kernel_takes():
             kernels.mdct_rows_plan(M, n, sms)
 
 
+# The f64 path's outputs [M, N] over K at the codec's f64 hops: mdct_rows'
+# [M, n] over 2n and imdct_window's [B, 2n] over n, at every row count the
+# tests launch and the tile and wave edges of each build
+F64_ROWS = sorted({*GEOMETRY_ROWS, *COVER_ROWS, 15, 17, 31, 33, 127, 129,
+                   255, 256, 257, 2815, 2817, 8191, 8193})
+
+
+@pytest.mark.parametrize("kernel", ["mdct_rows", "imdct_window"])
+@pytest.mark.parametrize("n", [n for n in GEOMETRY_NS if n <= 456])
+def test_f64_plan_covers_every_element_once(kernel, n):
+    """kernels.f64_plan at the f64 path's n: a built tile, the one the
+    model finds fastest; its f64_tiles blocks, block b at the tile corner
+    the kernel gives it (row tile b // tiles_n, column tile b % tiles_n,
+    csrc/f64_rows.cuh rows_kernel), cover [M, N] exactly once, the tiles
+    past M or N only in their last row or column tile."""
+    N, K = (n, 2 * n) if kernel == "mdct_rows" else (2 * n, n)
+    for sms in (SMS, 114, 1):
+        for M in F64_ROWS:
+            plan = kernels.f64_plan(M, N, K, sms)
+            rows, cols = plan
+            assert plan in kernels.F64_TILES
+            us = {t: kernels.f64_plan_us(M, N, K, *t, sms)
+                  for t in kernels.F64_TILES}
+            assert us[plan] == min(us.values())
+            tiles = kernels.f64_tiles(M, N, rows, cols)
+            tiles_n = -(-N // cols)
+            b = np.arange(tiles)
+            row0, col0 = b // tiles_n * rows, b % tiles_n * cols
+            assert row0.max() < M <= row0.max() + rows
+            assert col0.max() < N <= col0.max() + cols
+            h = np.clip(M - row0, 0, rows)
+            w = np.clip(N - col0, 0, cols)
+            assert (h > 0).all() and (w > 0).all()
+            if M <= 2817:  # paint small outputs element by element
+                count = np.zeros((M, N), np.int32)
+                for r0, c0, hh, ww in zip(row0, col0, h, w):
+                    count[r0:r0 + hh, c0:c0 + ww] += 1
+                assert (count == 1).all(), (M, N, plan)
+            else:  # disjoint tiles whose parts below M, N make M x N
+                assert (h * w).sum() == M * N
+                assert len(set(zip(row0, col0))) == tiles
+
+
+def test_f64_plan_model_follows_rounds_of_tiles():
+    """The model's time: rounds of tiles (SMs x F64_RESIDENT blocks a
+    round) times the build's unit time times the k16 steps; small tiles
+    where a few hundred rows leave the card idle, larger ones where the
+    rows fill it (the sweep behind F64_UNIT_US, PERF.md)."""
+    for (rows, cols), unit in kernels.F64_UNIT_US.items():
+        slots = SMS * kernels.F64_RESIDENT[rows, cols]
+        one = slots // -(-441 // cols) * rows  # the most rows in one round
+        assert kernels.f64_plan_us(one, 441, 882, rows, cols, SMS) == \
+            pytest.approx(unit * 56)
+        assert kernels.f64_plan_us(one + 1, 441, 882, rows, cols, SMS) == \
+            pytest.approx(2 * unit * 56)
+    assert kernels.f64_plan(1, 441, 882, SMS) == (16, 64)
+    assert kernels.f64_plan(646, 441, 882, SMS) == (16, 64)
+    assert kernels.f64_plan(8192, 441, 882, SMS) != (16, 64)
+
+
+def test_f64_plan_refuses_an_empty_output():
+    for M, N, K, sms in ((0, 441, 882, SMS), (5, 0, 882, SMS),
+                         (5, 441, 0, SMS), (5, 441, 882, 0)):
+        with pytest.raises(ValueError):
+            kernels.f64_plan(M, N, K, sms)
+
+
 def test_product_path_takes_f64_up_to_the_cut_and_tiles_above():
     """The products' path by n: f64 from 1 to the cut the path sweep
     measured (kernels._F64_MAX_N), the 3xTF32 tile product above it and at
@@ -757,6 +846,23 @@ def test_cos_split_pads_its_rows(n):
     assert torch.equal(lo[:, :2 * n], want_lo)
     assert not hi[:, 2 * n:].any() and not lo[:, 2 * n:].any()
     assert cos_split(table)[0] is hi and cos_split.splits == before + 1
+
+
+@pytest.mark.parametrize("n", [1, 8, 256, 441, 456])
+def test_f64_table_t_pads_its_rows_and_is_made_once(n):
+    """mdct_rows' f64 path reads the transposed f32 table
+    (kernels.f64_table_t) with rows of row_pitch(n) floats, 16-byte
+    multiples for its 16-byte copies, zeros right of n; made once per
+    table tensor, apart from imdct_window's f64_table."""
+    table = get_codec_tables(n, 2 * n, RATE, "cpu").cos_table.clone()
+    before = (kernels.f64_table_t.copies, kernels.f64_table.copies)
+    t = kernels.f64_table_t(table)
+    assert t.dtype == torch.float32 and t.is_contiguous()
+    assert t.shape == (2 * n, row_pitch(n)) and (t.shape[1] * 4) % 16 == 0
+    assert torch.equal(t[:, :n], table.T) and not t[:, n:].any()
+    assert kernels.f64_table_t(table) is t
+    assert (kernels.f64_table_t.copies, kernels.f64_table.copies) == (
+        before[0] + 1, before[1])
 
 
 def test_padded_rows_copies_only_widths_off_16_bytes():
@@ -1046,6 +1152,54 @@ def test_cuda_f64_path_at_every_n(cuda_tables, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 130, 255, 256, 441])
+def test_cuda_f64_mdct_rows_at_its_edges(cuda_tables, n):
+    """mdct_rows' f64 path where it changes course: the row counts at its
+    builds' tile and wave edges and where the chooser changes build
+    (`f64_edge_rows`); n with win rows (2n floats) of a multiple of 4
+    floats (130, 256) and not (1, 255, 441); win that starts 4 and 8 bytes
+    past a 16-byte boundary (a slice of a larger tensor); every build.
+    Each row the bits of the same row in an 8192-row launch, its error
+    against float64 no more than plain's; a block tile that is not built
+    refused."""
+    tb = get_codec_tables(n, 2 * n, RATE, "cuda")
+    every = _rows_on_card(8192, 2 * n, n + 5, window=tb.window)
+    all_rows = mdct_rows(every, tb.cos_table, tb.norm)
+    table64 = tb.cos_table.double()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = kernels.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for M in f64_edge_rows(n, 2 * n, sms):
+        for shift in (0, 1, 2):  # floats past a 16-byte aligned start
+            flat = torch.empty(M * 2 * n + 4, device="cuda")
+            win = flat[shift:shift + M * 2 * n].view(M, 2 * n)
+            win.copy_(every[-M:])
+            before = mdct_rows.f64_launches
+            out = mdct_rows(win, tb.cos_table, tb.norm)
+            assert mdct_rows.f64_launches == before + 1
+            ref = mdct_rows_reference(win, tb.cos_table, tb.norm)
+            torch.cuda.synchronize()
+            assert torch.equal(out, all_rows[-M:]), (M, shift)
+            exact = (win.double() @ table64.T) * tb.norm_value
+            err_kernel = (out.double() - exact).abs().max().item()
+            err_plain = (ref.double() - exact).abs().max().item()
+            assert err_kernel <= err_plain * (1 + 1e-6), (M, shift)
+        win = every[-M:].clone()
+        table = kernels.f64_table_t(tb.cos_table)
+        for rows, cols in (*kernels.F64_TILES, (64, 64), (32, 32)):
+            out = torch.zeros((M, n), device="cuda")
+            rc = lib.glc_mdct_rows_f64(
+                win.data_ptr(), table.data_ptr(), tb.norm.data_ptr(),
+                out.data_ptr(), M, n, rows, cols, stream)
+            torch.cuda.synchronize()
+            if (rows, cols) in kernels.F64_TILES:
+                assert rc == 0, (M, rows, rc)
+                assert torch.equal(out, all_rows[-M:]), (M, rows)
+            else:
+                assert rc == 1 and not out.any(), (M, rows, cols)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", GEOMETRY_NS)
 def test_cuda_band_energy_at_every_n(cuda_tables, n):
     """Any n, at 44.1 and 48 kHz: the kernel against plain at every row
@@ -1120,9 +1274,9 @@ def test_cuda_kernels_refuse_n_above_the_largest(cuda_tables):
         band_energy(rows, mask)
     lib = kernels.load_library()
     assert lib.glc_mdct_rows(0, 0, 0, 0, 0, 1, n, 128, 128, 1, 0) == 1
-    assert lib.glc_mdct_rows_f64(0, 0, 0, 0, 1, n, 0) == 1
+    assert lib.glc_mdct_rows_f64(0, 0, 0, 0, 1, n, 32, 64, 0) == 1
     assert lib.glc_imdct_window(0, 0, 0, 0, 0, 1, n, 1.0, 0) == 1
-    assert lib.glc_imdct_window_f64(0, 0, 0, 0, 1, n, 1.0, 0) == 1
+    assert lib.glc_imdct_window_f64(0, 0, 0, 0, 1, n, 1.0, 32, 64, 0) == 1
     plan_len = 3 * 1 + 2 * kernels.BAND_LANES + 1 + 3 * 1 + 1
     assert lib.glc_band_energy(0, 0, 0, 1, n, 1, 1, plan_len, 0) == 1
 

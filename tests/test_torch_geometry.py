@@ -1,5 +1,6 @@
-"""The port at frame geometries other than the default hop of 1024: hop 441
-(10 ms at 44.1 kHz), 500, 960 (20 ms at 48 kHz) and 2048, each with
+"""The port at frame geometries other than the default hop of 1024: hop 256
+(5.3 ms at 48 kHz) and 441 (10 ms at 44.1 kHz), where the card's products
+take their f64 path, 500, 960 (20 ms at 48 kHz) and 2048, each with
 frame_size = 2·hop, which both packages' decodes assume
 (glc_tpu/ops/decode.py:232).
 
@@ -40,6 +41,7 @@ from glc_tpu_torch.parity import check_containers
 
 # name -> (hop size, sample rate)
 GEOMETRIES = {
+    "hop256_48k": (256, 48000),
     "hop441_44k1": (441, 44100),
     "hop500_44k1": (500, 44100),
     "hop960_48k": (960, 48000),

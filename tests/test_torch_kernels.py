@@ -175,6 +175,29 @@ def test_table_split_pads_its_rows(n):
     assert table_split(table)[1] is lo and table_split.splits == before + 1
 
 
+@pytest.mark.parametrize("n", [1, 128, 255, 256, 441, 456])
+def test_f64_table_is_the_table_at_a_16_byte_pitch(n):
+    """imdct_window's f64 path reads the f32 table (kernels.f64_table) with
+    rows of row_pitch(2n) floats, 16-byte multiples for its 16-byte
+    copies: the table itself at an even n; at an odd n a copy, the table
+    then zeros, made once per table tensor, again after an in-place change,
+    and apart from mdct_rows' transposed one."""
+    table = get_codec_tables(n, 2 * n, 44100, "cpu").cos_table.clone()
+    before = (kernels.f64_table.copies, kernels.f64_table_t.copies)
+    t = kernels.f64_table(table)
+    assert t.dtype == torch.float32 and t.is_contiguous()
+    assert t.shape == (n, row_pitch(2 * n)) and (t.shape[1] * 4) % 16 == 0
+    assert torch.equal(t[:, :2 * n], table) and not t[:, 2 * n:].any()
+    assert kernels.f64_table(table) is t
+    made = n % 2
+    assert (t is table) == (not made)
+    assert (kernels.f64_table.copies, kernels.f64_table_t.copies) == (
+        before[0] + made, before[1])
+    table.mul_(1.0)  # an in-place change copies again
+    assert (kernels.f64_table(table) is t) == (not made)
+    assert kernels.f64_table.copies == before[0] + 2 * made
+
+
 @pytest.mark.parametrize("n", [441, 960])
 def test_cpu_matches_pallas_kernel_at_other_hops(n):
     """The wrapper's CPU path against the Pallas kernel (interpret mode)
@@ -207,6 +230,29 @@ def test_library_name_covers_flags_and_every_source(monkeypatch, tmp_path):
     assert kernels.library_path() == base
     (tmp_path / "extra.cuh").write_text("// a new header\n")
     assert kernels.library_path() != base
+
+
+def f64_edge_rows(N: int, K: int, sms: int, top: int = 8192) -> list:
+    """Row counts up to `top` where the f64 path changes course on an
+    output [M, N] over K: one row; every build's block tile rows and one
+    either side, and two tiles and one; each build's wave edges, where its
+    tile count crosses the blocks the card holds at once, a row tile either
+    side; and both sides of each change of the chooser's build
+    (kernels.f64_plan)."""
+    out = {1}
+    for rows, cols in kernels.F64_TILES:
+        out |= {rows - 1, rows, rows + 1, 2 * rows - 1, 2 * rows + 1}
+        slots = sms * kernels.F64_RESIDENT[rows, cols]
+        for waves in (1, 2):
+            edge = waves * slots // -(-N // cols) * rows
+            out |= {edge - 1, edge, edge + 1, edge + rows + 1}
+    last = None
+    for M in range(1, top + 1):
+        tile = kernels.f64_plan(M, N, K, sms)
+        if last is not None and tile != last:
+            out |= {M - 1, M}
+        last = tile
+    return sorted(m for m in out if 1 <= m <= top)
 
 
 @pytest.fixture
@@ -299,3 +345,57 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         imdct_window(good, tables.cos_table.cpu(), tables.window,
                      tables.norm_value)
     assert kernels.load_library() is kernels.load_library()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 130, 255, 256, 441])
+def test_cuda_f64_imdct_window_at_its_edges(cuda_device, n):
+    """imdct_window's f64 path where it changes course: the row counts at
+    its builds' tile and wave edges and where the chooser changes build
+    (`f64_edge_rows`); n with coeffs rows of a multiple of 4 floats (256)
+    and not (1, 130, 255, 441); coeffs that start 4 and 8 bytes past a
+    16-byte boundary (a slice of a larger tensor); every build.  Each row
+    the bits of the same row in an 8192-row launch, its error against
+    float64 no more than plain's; a block tile that is not built
+    refused."""
+    tables = get_codec_tables(n, 2 * n, 44100, cuda_device)
+    rng = np.random.default_rng(n + 11)
+    every = torch.from_numpy((rng.standard_normal((8192, n)) * 0.1)
+                             .astype(np.float32)).to(cuda_device)
+    rest = (tables.cos_table, tables.window, tables.norm_value)
+    table64 = tables.cos_table.double()
+    window64 = tables.window.double()
+    all_rows = imdct_window(every, *rest)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = kernels.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for B in f64_edge_rows(2 * n, n, sms):
+        for shift in (0, 1, 2):  # floats past a 16-byte aligned start
+            flat = torch.empty(B * n + 4, device=cuda_device)
+            coeffs = flat[shift:shift + B * n].view(B, n)
+            coeffs.copy_(every[-B:])
+            before = imdct_window.f64_launches
+            out = imdct_window(coeffs, *rest)
+            assert imdct_window.f64_launches == before + 1
+            ref = imdct_window_reference(coeffs, *rest)
+            torch.cuda.synchronize()
+            assert torch.equal(out, all_rows[-B:]), (B, shift)
+            exact = ((coeffs.double() @ table64) * tables.norm_value) \
+                * window64
+            err_kernel = (out.double() - exact).abs().max().item()
+            err_plain = (ref.double() - exact).abs().max().item()
+            assert err_kernel <= err_plain * (1 + 1e-6), (B, shift)
+        coeffs = every[-B:].clone()
+        table = kernels.f64_table(tables.cos_table)
+        for rows, cols in (*kernels.F64_TILES, (64, 64), (32, 32)):
+            out = torch.zeros((B, 2 * n), device=cuda_device)
+            rc = lib.glc_imdct_window_f64(
+                coeffs.data_ptr(), table.data_ptr(),
+                tables.window.data_ptr(), out.data_ptr(), B, n,
+                tables.norm_value, rows, cols, stream)
+            torch.cuda.synchronize()
+            if (rows, cols) in kernels.F64_TILES:
+                assert rc == 0, (B, rows, rc)
+                assert torch.equal(out, all_rows[-B:]), (B, rows)
+            else:
+                assert rc == 1 and not out.any(), (B, rows, cols)
