@@ -209,39 +209,38 @@ class Decoder:
             clock.count("up_n")
             return upload_concat(arrays, dev)
 
-        t0 = clock.tick()
-        C = parts[0][0].channels
-        frame_size = parts[0][0].frame_size
-        pos_l, val_l, scale_l, idx_l, raw_l = [], [], [], [], []
-        counts = []
-        off = 0
-        for fs, start, valid, (pair_off, raw_off) in parts:
-            pos, vals = chunk_pairs(fs, start, valid, int(pair_off[start]), n)
-            pos_l.append(pos + off * C * n)
-            val_l.append(vals)
-            scale_l.append(fs.scales[start : start + valid])
-            raw_idx = np.flatnonzero(fs.raw_mask[start : start + valid])
-            r0 = int(raw_off[start])
-            idx_l.append(raw_idx + off)
-            raw_l.append(fs.raw_pcm[r0 : r0 + len(raw_idx)])
-            counts.append(valid)
-            off += valid
-        t0 = clock.add("pack_ms", t0)
+        with clock.stage("pack"):
+            C = parts[0][0].channels
+            frame_size = parts[0][0].frame_size
+            pos_l, val_l, scale_l, idx_l, raw_l = [], [], [], [], []
+            counts = []
+            off = 0
+            for fs, start, valid, (pair_off, raw_off) in parts:
+                pos, vals = chunk_pairs(fs, start, valid,
+                                        int(pair_off[start]), n)
+                pos_l.append(pos + off * C * n)
+                val_l.append(vals)
+                scale_l.append(fs.scales[start : start + valid])
+                raw_idx = np.flatnonzero(fs.raw_mask[start : start + valid])
+                r0 = int(raw_off[start])
+                idx_l.append(raw_idx + off)
+                raw_l.append(fs.raw_pcm[r0 : r0 + len(raw_idx)])
+                counts.append(valid)
+                off += valid
 
-        q = dense_q(up(pos_l), up(val_l), off, C, n)
-        rows = up(raw_l)
-        if cfg.reference_compat:
-            # channel-major data read back interleaved (Q13)
-            rows = rows.view(-1, frame_size, C).transpose(1, 2)
-        else:
-            rows = rows.view(-1, C, frame_size)
-        out = decode_stacked(
-            q, up(scale_l), up(idx_l), rows, carries, counts, last,
-            self.tables, max_q=cfg.max_q,
-            window_raw=not cfg.reference_compat,  # fix Q4 in clean mode
-        )
-        clock.add("disp_ms", t0)
-        return out
+        with clock.stage("disp"):
+            q = dense_q(up(pos_l), up(val_l), off, C, n)
+            rows = up(raw_l)
+            if cfg.reference_compat:
+                # channel-major data read back interleaved (Q13)
+                rows = rows.view(-1, frame_size, C).transpose(1, 2)
+            else:
+                rows = rows.view(-1, C, frame_size)
+            return decode_stacked(
+                q, up(scale_l), up(idx_l), rows, carries, counts, last,
+                self.tables, max_q=cfg.max_q,
+                window_raw=not cfg.reference_compat,  # fix Q4 in clean mode
+            )
 
     def _chunks(self, encoded: EncodedAudio, chunk: int,
                 clock: StageClock = NO_STATS):
@@ -281,15 +280,18 @@ class Decoder:
 
         `stats`, if given, accumulates the loop's stage and transfer
         attribution (the JAX package's keys, each set with setdefault and
-        added to, so one dict can sum several calls):
+        added to, so one dict can sum several calls).  While a profiler
+        records, each stage is also the span named beside it, with or
+        without `stats`:
 
-        * ``pack_ms`` — host ms building a chunk's inputs: `chunk_pairs`,
-          the scale and raw-row slices and their lists (the counterpart of
-          the JAX package's ``_packed_slices``);
-        * ``disp_ms`` — host ms issuing the uploads (the pinned staging
-          included), the launches and the non-blocking download;
-        * ``wait_ms`` — host ms blocked on a chunk's download, and its
-          trim;
+        * ``pack_ms`` (``glc.decode.pack``) — host ms building a chunk's
+          inputs: `chunk_pairs`, the scale and raw-row slices and their
+          lists (the counterpart of the JAX package's ``_packed_slices``);
+        * ``disp_ms`` (``glc.decode.disp``) — host ms issuing the uploads
+          (the pinned staging included), the launches and the non-blocking
+          download;
+        * ``wait_ms`` (``glc.decode.wait``) — host ms blocked on a chunk's
+          download, and its trim;
         * ``up_n`` — host→device copies: 5 a chunk, where the JAX package
           uploads one packed words array a chunk; the port sends the pair
           positions, the pair values, the raw rows, the scales and the raw
@@ -321,7 +323,7 @@ class Decoder:
         """
         cfg = self.config
         n = cfg.n
-        clock = StageClock(stats, STATS_KEYS)
+        clock = StageClock(stats, STATS_KEYS, "decode")
 
         # per-track trim state: pos -> [skip_left, emitted, limit]
         trim_state: dict = {}
@@ -340,9 +342,8 @@ class Decoder:
 
         def collect(handle):
             pos, download = handle
-            t0 = clock.tick()
-            out = trim(pos, download.wait().reshape(-1))
-            clock.add("wait_ms", t0)
+            with clock.stage("wait"):
+                out = trim(pos, download.wait().reshape(-1))
             return pos, out
 
         handles: list = []
@@ -362,9 +363,8 @@ class Decoder:
                     yield pos, tail
                 continue
             for _valid, hops in self._chunks(encoded, chunk, clock):
-                t0 = clock.tick()
-                handles.append((pos, _Download(hops, out_i16=True)))
-                clock.add("disp_ms", t0)
+                with clock.stage("disp"):
+                    handles.append((pos, _Download(hops, out_i16=True)))
                 clock.count("down_n")
                 if len(handles) > _PIPELINE_DEPTH:
                     pos_o, out = collect(handles.pop(0))

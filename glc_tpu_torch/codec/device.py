@@ -9,6 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
+
 # The device of every entry point that is given none (the CLI, the FLAC
 # device math): "cpu" runs the port on the CPU, as the tests do.  The
 # counterpart of the JAX package's JAX_PLATFORMS.
@@ -60,40 +62,73 @@ def upload_concat(arrays, device: torch.device) -> torch.Tensor:
 
 
 class StageClock:
-    """The `stats=` hook of the encode and decode loops: it adds host
-    milliseconds per stage (keys ending in ``_ms``) and transfer counts
-    (keys ending in ``_n``) into the caller's dict.  Each key is set with
-    ``setdefault`` and then added to, so one dict can sum several calls.
+    """The stages of the encode and decode loops, for the `stats=` hook and
+    the profiler from the same boundaries.  ``with clock.stage("unpack"):``
+    adds the block's host milliseconds to ``stats["unpack_ms"]`` and, while
+    a profiler records, spans it as ``glc.<area>.unpack`` (`profiling.stage`:
+    a profiler range and, on CUDA, an NVTX range); ``call()`` is
+    the whole call, ``wall_ms`` and ``glc.<area>``.  `count` adds transfer
+    counts (keys ending in ``_n``).  Each key is set with ``setdefault``
+    and then added to, so one dict can sum several calls.
 
-    With ``stats=None`` every method returns at once without reading the
-    clock; with a dict it reads only ``time.perf_counter()`` and adds, so
-    the loop it instruments issues the same work and waits at the same
-    points either way."""
+    With ``stats=None`` and no profiler recording when the clock is made, a
+    stage is one attribute check and returns `profiling.OFF`: no clock read
+    and no profiler object.  Otherwise it reads only
+    ``time.perf_counter()`` and adds, so the loop it instruments issues the
+    same work and waits at the same points either way."""
 
-    __slots__ = ("stats",)
+    __slots__ = ("stats", "area", "spans", "live")
 
-    def __init__(self, stats: Optional[dict], keys):
+    def __init__(self, stats: Optional[dict], keys, area: str = ""):
         self.stats = stats
+        self.area = area
+        self.spans = bool(area) and profiling.recording()
+        self.live = stats is not None or self.spans
         if stats is not None:
             for key in keys:
                 stats.setdefault(key, 0.0 if key.endswith("_ms") else 0)
 
-    def tick(self) -> float:
-        """The start of a stage."""
-        return time.perf_counter() if self.stats is not None else 0.0
+    def stage(self, name: str):
+        """A stage of the loop: ``<name>_ms``, span ``glc.<area>.<name>``."""
+        if not self.live:
+            return profiling.OFF
+        return _Stage(self, f"{name}_ms", f"glc.{self.area}.{name}")
 
-    def add(self, key: str, t0: float) -> float:
-        """Add the milliseconds since `t0` to `key`; return now, the next
-        stage's start."""
-        if self.stats is None:
-            return 0.0
-        t1 = time.perf_counter()
-        self.stats[key] += (t1 - t0) * 1e3
-        return t1
+    def call(self):
+        """The whole call: ``wall_ms``, span ``glc.<area>``."""
+        if not self.live:
+            return profiling.OFF
+        return _Stage(self, "wall_ms", f"glc.{self.area}")
 
     def count(self, key: str, k: int = 1) -> None:
         if self.stats is not None:
             self.stats[key] += k
+
+
+class _Stage:
+    """One stage of a live `StageClock`: the clock is read inside the
+    span, so the span holds the milliseconds the key adds."""
+
+    __slots__ = ("stats", "key", "span", "t0")
+
+    def __init__(self, clock: StageClock, key: str, name: str):
+        self.stats = clock.stats
+        self.key = key
+        self.span = profiling.stage(name) if clock.spans else None
+
+    def __enter__(self):
+        if self.span is not None:
+            self.span.__enter__()
+        if self.stats is not None:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.stats is not None:
+            self.stats[self.key] += (time.perf_counter() - self.t0) * 1e3
+        if self.span is not None:
+            return self.span.__exit__(*exc)
+        return False
 
 
 # The clock of a loop called without `stats`: it records nothing.

@@ -11,6 +11,7 @@ Port of ``glc_tpu/codec/encoder.py``.  API mirrors the reference
     st = {}
     encoded = enc.encode_pcm16(i16, channels, stats=st)  # st: the host time
                                 # per stage and the transfer counts
+    encodeds = enc.encode_many(items, stats=st)  # every track's, summed
 
 The host uploads the interleaved signal once per file, from pinned memory;
 the deinterleave, padding and framing happen on the device.  Each segment
@@ -47,8 +48,10 @@ from .device import StageClock, resolve_device, upload
 from .tables import get_codec_tables, len_bucket
 
 
-# The keys of the `stats=` hook (`Encoder.encode`), the JAX package's.
-STATS_KEYS = ("disp_ms", "wait_ms", "up_n", "down_n")
+# The keys of the `stats=` hook (`Encoder.encode`): the JAX package's
+# (disp_ms, wait_ms, up_n, down_n) and the port's stages around them.
+STATS_KEYS = ("wall_ms", "prep_ms", "disp_ms", "wait_ms", "unpack_ms",
+              "assemble_ms", "up_n", "down_n")
 
 
 def frame_signal(samples: np.ndarray, channels: int, cfg: CodecConfig,
@@ -195,26 +198,42 @@ class Encoder:
                stats: Optional[dict] = None) -> EncodedAudio:
         """Encode interleaved float32 PCM (codec.rs:421-565).
 
-        `stats`, if given, accumulates the loop's stage and transfer
-        attribution (the JAX package's keys, each set with setdefault and
-        added to, so one dict can sum several calls):
+        `stats`, if given, accumulates the call's stage and transfer
+        attribution (the JAX package's keys and the port's stages, each set
+        with setdefault and added to, so one dict can sum several calls).
+        Each ``*_ms`` key is host milliseconds; while a profiler records,
+        each stage is also the span named beside it, with or without
+        `stats`:
 
-        * ``disp_ms`` — host ms issuing the upload and each segment's
-          launches.  On CUDA the segment call also blocks on the device:
-          ``masked_select`` (`ops.encode.compact_pairs`) needs the
+        * ``wall_ms`` (``glc.encode``) — the track's encode, from its
+          dtype conversion to its return;
+        * ``prep_ms`` (``glc.encode.prep``) — the input's dtype conversion,
+          `upload_geometry`, the ragged zero-completion and the per-frame
+          output arrays;
+        * ``disp_ms`` (``glc.encode.disp``) — issuing the upload and each
+          segment's launches.  On CUDA the segment call also blocks on the
+          device: ``masked_select`` (`ops.encode.compact_pairs`) needs the
           segment's kept-pair count, and the raw-row select its raw count,
           so this key holds each segment's device math up to those counts;
-          it cannot be split from the issuing without adding a sync.
-        * ``wait_ms`` — host ms in the segment's downloads (``.cpu()`` of
-          the stats, the pair words and the raw rows).
-        * ``up_n`` — host→device copies: 1, the interleaved signal.
+          it cannot be split from the issuing without adding a sync;
+        * ``wait_ms`` (``glc.encode.wait``) — the segment's downloads
+          (``.cpu()`` of the stats, the pair words and the raw rows);
+        * ``unpack_ms`` (``glc.encode.unpack``) — a segment's downloads
+          into the per-frame arrays: the scatter of its counts, scales and
+          raw flags, `pairs_from_words`, the raw rows' reshape;
+        * ``assemble_ms`` (``glc.encode.assemble``) — the concatenates of
+          the segments' pairs and raw rows, the container object, and the
+          release of the segments' parts;
+        * ``up_n`` — host→device copies: 1, the interleaved signal;
         * ``down_n`` — device→host copies: 2 a segment (stats, words), plus
           1 for a segment with raw-PCM frames.  The JAX package fetches
           the stats and a guessed pair prefix in one download; here the
           pair count is known before the download, so it is exact.
 
-        The counts are of calls, whatever the device, so a CPU run gives
-        the card's.  Output is identical with or without the hook.
+        ``wall_ms`` less the five stages is the call's unstaged time: the
+        loop's own steps.  The counts are of calls, whatever the device, so
+        a CPU run gives the card's.  Output is identical with or without
+        the hook.
         """
         samples = np.asarray(samples)
         if np.issubdtype(samples.dtype, np.integer):
@@ -223,8 +242,7 @@ class Encoder:
                 "sources use encode_pcm16() (exact, half the upload)"
             )
         with maybe_trace("encode"):
-            return self._encode(samples.astype(np.float32, copy=False),
-                                channels, pcm16=False, stats=stats)
+            return self._encode(samples, channels, pcm16=False, stats=stats)
 
     def encode_pcm16(self, samples_i16: np.ndarray, channels: int,
                      stats: Optional[dict] = None) -> EncodedAudio:
@@ -233,107 +251,117 @@ class Encoder:
         device (exact in f32) after a half-size upload.  `stats`: see
         `encode`."""
         with maybe_trace("encode"):
-            return self._encode(np.asarray(samples_i16, np.int16), channels,
-                                pcm16=True, stats=stats)
+            return self._encode(samples_i16, channels, pcm16=True,
+                                stats=stats)
 
-    def encode_many(self, items) -> list:
+    def encode_many(self, items, stats: Optional[dict] = None) -> list:
         """Encode several tracks (glc_tpu/codec/encoder.py:468-905):
         `items` is a sequence of (samples, channels); int16 arrays take the
         exact `encode_pcm16` path, float arrays the `encode` path.  Other
         integer arrays raise TypeError, and empty or unframeable inputs
         ValueError, before anything is encoded.  Returns the containers in
         input order, each the per-file encode's (the module docstring says
-        why the tracks are not batched)."""
+        why the tracks are not batched).  `stats` (see `encode`) sums every
+        track's keys, as the per-file calls would add them; a track's
+        ``wall_ms`` starts after the checks of all the tracks."""
         prepped = []
         for samples, channels in items:
             samples = np.asarray(samples)
             pcm16 = samples.dtype == np.int16
             if not pcm16 and np.issubdtype(samples.dtype, np.integer):
                 raise TypeError("encode_many expects float PCM or int16 arrays")
-            if not pcm16:
-                samples = samples.astype(np.float32, copy=False)
             prepped.append((samples, int(channels), pcm16))
         for samples, channels, _pcm16 in prepped:
             if len(samples) == 0:
                 raise ValueError("cannot encode empty input")
             frame_plan(len(samples), channels, self.config)
         with maybe_trace("encode_many"):
-            return [self._encode(s, c, pcm16=p) for s, c, p in prepped]
+            return [self._encode(s, c, pcm16=p, stats=stats)
+                    for s, c, p in prepped]
 
-    def _encode(self, samples: np.ndarray, channels: int, *,
-                pcm16: bool, stats: Optional[dict] = None) -> EncodedAudio:
+    def _encode(self, samples, channels: int, *, pcm16: bool,
+                stats: Optional[dict] = None) -> EncodedAudio:
+        clock = StageClock(stats, STATS_KEYS, "encode")
+        with clock.call():
+            return self._encode_stages(samples, channels, pcm16, clock)
+
+    def _encode_stages(self, samples, channels: int, pcm16: bool,
+                       clock: StageClock) -> EncodedAudio:
         cfg = self.config
         hop, frame_size, n = cfg.hop_size, cfg.frame_size, cfg.n
         C = int(channels)
-        total_samples = len(samples)
-        if total_samples == 0:
-            raise ValueError("cannot encode empty input")
         lead = hop // 2
+        with clock.stage("prep"):
+            samples = (np.asarray(samples, np.int16) if pcm16
+                       else samples.astype(np.float32, copy=False))
+            total_samples = len(samples)
+            if total_samples == 0:
+                raise ValueError("cannot encode empty input")
+            T, F, padding, plan, need_hops = upload_geometry(
+                total_samples, C, cfg
+            )
+            if T * C != total_samples:
+                # ragged input: zero-complete the last sample row, which
+                # reproduces the reference's modulo deinterleave
+                xup = np.zeros(T * C, samples.dtype)
+                xup[:total_samples] = samples
+            else:
+                xup = samples
+            nnz_all = np.empty((F, C), np.int64)
+            scales_all = np.empty((F, C), np.float32)
+            raw_mask_all = np.empty(F, bool)
+        with clock.stage("disp"):
+            xfull = planarize(upload(xup, self.device), C, lead, n, need_hops)
+            clock.count("up_n")
+            if pcm16:
+                xfull = xfull.to(torch.float32) / 32768.0  # exact: 2^15
 
-        T, F, padding, plan, need_hops = upload_geometry(
-            total_samples, C, cfg
-        )
-        if T * C != total_samples:
-            # ragged input: zero-complete the last sample row, which
-            # reproduces the reference's modulo deinterleave
-            xup = np.zeros(T * C, samples.dtype)
-            xup[:total_samples] = samples
-        else:
-            xup = samples
-        clock = StageClock(stats, STATS_KEYS)
-        t0 = clock.tick()
-        xfull = planarize(upload(xup, self.device), C, lead, n, need_hops)
-        clock.count("up_n")
-        if pcm16:
-            xfull = xfull.to(torch.float32) / 32768.0  # exact: 2^15
-        clock.add("disp_ms", t0)
-
-        nnz_all = np.empty((F, C), np.int64)
-        scales_all = np.empty((F, C), np.float32)
-        raw_mask_all = np.empty(F, bool)
         pair_parts = []
         raw_parts = []
         for start, k in plan:
             valid = min(k, F - start)
-            t0 = clock.tick()
-            stats_d, words_d, raw_d = encode_segment(
-                xfull, start, valid, self.tables,
-                quality=cfg.quality_factor,
-                noise_floor_db=cfg.noise_floor_db,
-                compression_threshold=cfg.compression_threshold,
-                max_q=cfg.max_q,
-            )
-            t0 = clock.add("disp_ms", t0)
-            seg = stats_d.cpu().numpy()  # waits for the segment
-            words = words_d.cpu().numpy()
-            raw = raw_d.cpu().numpy() if raw_d.shape[0] else None
-            clock.add("wait_ms", t0)
+            with clock.stage("disp"):
+                stats_d, words_d, raw_d = encode_segment(
+                    xfull, start, valid, self.tables,
+                    quality=cfg.quality_factor,
+                    noise_floor_db=cfg.noise_floor_db,
+                    compression_threshold=cfg.compression_threshold,
+                    max_q=cfg.max_q,
+                )
+            with clock.stage("wait"):
+                seg = stats_d.cpu().numpy()  # waits for the segment
+                words = words_d.cpu().numpy()
+                raw = raw_d.cpu().numpy() if raw_d.shape[0] else None
             clock.count("down_n", 2 + (raw is not None))
-            nnz_all[start : start + valid] = seg[:, :C]
-            scales_all[start : start + valid] = seg[:, C : 2 * C].view(
-                np.float32
-            )
-            raw_mask_all[start : start + valid] = seg[:, 2 * C] != 0
-            pair_parts.append(pairs_from_words(words))
-            if raw is not None:
-                # channel-major flatten — the reference's actual storage
-                # layout (codec.rs:471-503, quirk Q13)
-                raw_parts.append(raw.reshape(-1, C * frame_size))
+            with clock.stage("unpack"):
+                nnz_all[start : start + valid] = seg[:, :C]
+                scales_all[start : start + valid] = seg[:, C : 2 * C].view(
+                    np.float32
+                )
+                raw_mask_all[start : start + valid] = seg[:, 2 * C] != 0
+                pair_parts.append(pairs_from_words(words))
+                if raw is not None:
+                    # channel-major flatten — the reference's actual storage
+                    # layout (codec.rs:471-503, quirk Q13)
+                    raw_parts.append(raw.reshape(-1, C * frame_size))
 
-        pairs_all = np.concatenate(pair_parts)
-        raw_all = (
-            np.concatenate(raw_parts)
-            if raw_parts
-            else np.empty((0, C * frame_size), np.int16)
-        )
-        fs = FrameSet(nnz_all, pairs_all, scales_all, raw_mask_all, raw_all,
-                      frame_size)
-        return EncodedAudio(
-            header=AudioHeader(self.sample_rate, C, total_samples),
-            frame_set=fs,
-            gapless_info=GaplessInfo(
-                encoder_delay=hop // 2,
-                padding=padding,
-                original_length=total_samples,
-            ),
-        )
+        with clock.stage("assemble"):
+            pairs_all = np.concatenate(pair_parts)
+            raw_all = (
+                np.concatenate(raw_parts)
+                if raw_parts
+                else np.empty((0, C * frame_size), np.int16)
+            )
+            del (pair_parts, raw_parts, seg, words, raw, stats_d, words_d,
+                 raw_d)
+            fs = FrameSet(nnz_all, pairs_all, scales_all, raw_mask_all,
+                          raw_all, frame_size)
+            return EncodedAudio(
+                header=AudioHeader(self.sample_rate, C, total_samples),
+                frame_set=fs,
+                gapless_info=GaplessInfo(
+                    encoder_delay=hop // 2,
+                    padding=padding,
+                    original_length=total_samples,
+                ),
+            )

@@ -32,6 +32,7 @@ from typing import Union
 
 import numpy as np
 
+from ..profiling import span
 from .schema import (
     PAIR_DTYPE,
     AudioHeader,
@@ -59,11 +60,14 @@ def serialize_encoded(encoded: EncodedAudio) -> bytes:
     Uses the native single-pass writer (native/glc_native.cpp) when
     available; falls back to the vectorized numpy writer below (kept as the
     reference implementation — byte-identity is cross-checked in tests).
+    While a profiler records, the call is the span
+    ``glc.container.serialize``.
     """
-    native = _native_serialize(encoded)
-    if native is not None:
-        return native
-    return _serialize_encoded_numpy(encoded)
+    with span("glc.container.serialize"):
+        native = _native_serialize(encoded)
+        if native is not None:
+            return native
+        return _serialize_encoded_numpy(encoded)
 
 
 def _native_serialize(encoded: EncodedAudio):

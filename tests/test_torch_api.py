@@ -7,7 +7,8 @@ Bounds, each with its reason:
 - Hooked against unhooked calls: equal, bytes and bits.  The hook only
   reads the clock and adds.
 - The hook's keys: the JAX package's (tests/test_chunking.py:588-608,
-  tests/test_decode_many.py:244-330).  Its counts: the port's own, exact,
+  tests/test_decode_many.py:244-330), and the encode's stages around them
+  (tests/test_torch_stages.py).  Its counts: the port's own, exact,
   from the geometry.  The encode uploads the signal once and downloads 2
   arrays a segment, 3 for a segment with raw-PCM frames.  The decode
   uploads 5 arrays a chunk, where the JAX package uploads one packed
@@ -59,7 +60,9 @@ from utils import generate_frequency_sweep, generate_white_noise  # noqa: E402
 
 RATE = 44100
 N, FRAME = 1024, 2048
-ENCODE_KEYS = {"disp_ms", "wait_ms", "up_n", "down_n"}
+# the JAX package's keys and the port's stages around them (Encoder.encode)
+ENCODE_KEYS = {"disp_ms", "wait_ms", "up_n", "down_n", "wall_ms", "prep_ms",
+               "unpack_ms", "assemble_ms"}
 DECODE_KEYS = {"pack_ms", "disp_ms", "wait_ms", "up_n", "down_n"}
 # The decode's uploads a chunk: pair positions, pair values, raw rows,
 # scales, raw frames' indices (Decoder._decode_parts)
@@ -404,7 +407,8 @@ def test_ops_names_match_jax():
 def test_public_methods_match_jax(name):
     """Every public method of the JAX package's Encoder and Decoder has a
     counterpart here with the same parameters, in order; __init__ adds
-    `device`."""
+    `device`, and `encode_many` the `stats=` hook of the per-file
+    encodes."""
     import glc_tpu
 
     jcls, tcls = getattr(glc_tpu, name), getattr(glc_tpu_torch, name)
@@ -415,6 +419,8 @@ def test_public_methods_match_jax(name):
         want = list(inspect.signature(getattr(jcls, m)).parameters)
         if m == "__init__":
             want.append("device")
+        if m == "encode_many":
+            want.append("stats")
         got = list(inspect.signature(getattr(tcls, m)).parameters)
         assert got == want, (name, m)
 

@@ -4,7 +4,8 @@ Without GLC_PROFILE `maybe_trace` does nothing and writes nothing.  With it
 set, each traced entry point (`Encoder.encode`, `encode_pcm16`,
 `encode_many`, `Decoder.decode_i16`, `decode`) writes a torch.profiler
 Chrome trace under ``$GLC_PROFILE/<name>`` that holds a span of its name,
-and returns what it returns untraced, bit for bit.
+and returns what it returns untraced, bit for bit, and holds the program's
+stage spans (``glc.encode.*``, ``glc.decode.*``).
 """
 
 import contextlib
@@ -90,3 +91,23 @@ def test_trace_and_annotate(tmp_path):
                 Encoder(RATE, device="cpu").encode_pcm16(_pcm(0.2, 1), 1))
     assert len(list(tmp_path.glob("*.pt.trace.json"))) == 1
     assert "phase" in _events(tmp_path)
+
+
+STAGE_SPANS = {
+    "encode": {"glc.encode", "glc.encode.prep", "glc.encode.disp",
+               "glc.encode.wait", "glc.encode.unpack", "glc.encode.assemble"},
+    "decode_i16": {"glc.decode.pack", "glc.decode.disp", "glc.decode.wait"},
+}
+
+
+@pytest.mark.parametrize("entry", ["encode", "encode_pcm16", "encode_many",
+                                   "decode_i16"])
+def test_entry_point_traces_hold_its_stages(monkeypatch, tmp_path, entry):
+    """Under GLC_PROFILE the trace of an entry holds the program's stage
+    spans (`codec.device.StageClock`), with no `stats=` given."""
+    call = _calls()[entry]
+    monkeypatch.setenv("GLC_PROFILE", str(tmp_path))
+    call()
+    span = SPANS[entry]
+    want = STAGE_SPANS["decode_i16" if entry == "decode_i16" else "encode"]
+    assert want <= _events(tmp_path / span)
