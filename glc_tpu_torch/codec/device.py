@@ -61,6 +61,20 @@ def upload_concat(arrays, device: torch.device) -> torch.Tensor:
     return buf.to(device, non_blocking=True)
 
 
+def download_concat(parts, dtype, *row_shape) -> np.ndarray:
+    """``torch.cat(parts)`` as a host array, with no concatenate on the
+    device (which would hold every part twice there): one host array of the
+    parts' total length, each part copied from its device straight into
+    its slice, once.  `dtype` and `row_shape` give the array for an empty
+    `parts`."""
+    out = np.empty((sum(p.shape[0] for p in parts), *row_shape), dtype)
+    at = 0
+    for p in parts:
+        torch.from_numpy(out[at : at + p.shape[0]]).copy_(p)
+        at += p.shape[0]
+    return out
+
+
 class StageClock:
     """The stages of the encode and decode loops, for the `stats=` hook and
     the profiler from the same boundaries.  ``with clock.stage("unpack"):``

@@ -15,9 +15,12 @@ Port of ``glc_tpu/codec/encoder.py``.  API mirrors the reference
 
 The host uploads the interleaved signal once per file, from pinned memory;
 the deinterleave, padding and framing happen on the device.  Each segment
-of the plan (`upload_geometry`) is one batch of frames, and its download
-is the per-frame stats, exactly the kept pairs, and the raw rows of the
-frames that chose the raw-PCM fallback.
+of the plan (`upload_geometry`) is one batch of frames: its per-frame
+stats are downloaded as it ends, into their rows of one host array; its
+kept pairs, already in the container's byte layout, and the raw rows of
+the frames that chose the raw-PCM fallback stay on the device until the
+track's last segment, and are then copied once each into their slices of
+the container's own arrays, with no host pass over a pair.
 
 `encode_many` encodes its tracks one after another.  Each segment waits
 for its own downloads (the pair count of ``masked_select`` and the stats),
@@ -36,7 +39,6 @@ import torch
 
 from ..config import CodecConfig, DEFAULT_CONFIG
 from ..container.schema import (
-    PAIR_DTYPE,
     AudioHeader,
     EncodedAudio,
     FrameSet,
@@ -44,7 +46,7 @@ from ..container.schema import (
 )
 from ..ops.encode import encode_segment, planarize
 from ..profiling import maybe_trace
-from .device import StageClock, resolve_device, upload
+from .device import StageClock, download_concat, resolve_device, upload
 from .tables import get_codec_tables, len_bucket
 
 
@@ -167,14 +169,6 @@ def upload_geometry(total_samples: int, channels: int, cfg: CodecConfig):
     return T, F, padding, plan, need_hops
 
 
-def pairs_from_words(words: np.ndarray) -> np.ndarray:
-    """int32 words (k << 16) | (q & 0xFFFF) → PAIR_DTYPE pairs."""
-    pairs = np.empty(len(words), PAIR_DTYPE)
-    pairs["k"] = (words >> 16).astype(np.uint16)
-    pairs["q"] = (words & 0xFFFF).astype(np.uint16).view(np.int16)
-    return pairs
-
-
 class Encoder:
     """reference src/codec.rs:396-418.
 
@@ -208,22 +202,23 @@ class Encoder:
         * ``wall_ms`` (``glc.encode``) — the track's encode, from its
           dtype conversion to its return;
         * ``prep_ms`` (``glc.encode.prep``) — the input's dtype conversion,
-          `upload_geometry`, the ragged zero-completion and the per-frame
-          output arrays;
+          `upload_geometry`, the ragged zero-completion and the host array
+          of the per-frame stats;
         * ``disp_ms`` (``glc.encode.disp``) — issuing the upload and each
           segment's launches.  On CUDA the segment call also blocks on the
           device: ``masked_select`` (`ops.encode.compact_pairs`) needs the
           segment's kept-pair count, and the raw-row select its raw count,
           so this key holds each segment's device math up to those counts;
           it cannot be split from the issuing without adding a sync;
-        * ``wait_ms`` (``glc.encode.wait``) — the segment's downloads
-          (``.cpu()`` of the stats, the pair words and the raw rows);
-        * ``unpack_ms`` (``glc.encode.unpack``) — a segment's downloads
-          into the per-frame arrays: the scatter of its counts, scales and
-          raw flags, `pairs_from_words`, the raw rows' reshape;
-        * ``assemble_ms`` (``glc.encode.assemble``) — the concatenates of
-          the segments' pairs and raw rows, the container object, and the
-          release of the segments' parts;
+        * ``wait_ms`` (``glc.encode.wait``) — the downloads: each
+          segment's stats into their rows of the stats array, and after
+          the last segment each segment's pair words and raw rows into
+          their slices of the container's pair and raw-PCM arrays;
+        * ``unpack_ms`` (``glc.encode.unpack``) — the split of the stats
+          array into the per-frame counts, scales and raw flags, once a
+          track;
+        * ``assemble_ms`` (``glc.encode.assemble``) — the release of the
+          segments' device parts and the container object;
         * ``up_n`` — host→device copies: 1, the interleaved signal;
         * ``down_n`` — device→host copies: 2 a segment (stats, words), plus
           1 for a segment with raw-PCM frames.  The JAX package fetches
@@ -307,16 +302,14 @@ class Encoder:
                 xup[:total_samples] = samples
             else:
                 xup = samples
-            nnz_all = np.empty((F, C), np.int64)
-            scales_all = np.empty((F, C), np.float32)
-            raw_mask_all = np.empty(F, bool)
+            seg_stats = np.empty((F, 2 * C + 1), np.int32)
         with clock.stage("disp"):
             xfull = planarize(upload(xup, self.device), C, lead, n, need_hops)
             clock.count("up_n")
             if pcm16:
                 xfull = xfull.to(torch.float32) / 32768.0  # exact: 2^15
 
-        pair_parts = []
+        word_parts = []
         raw_parts = []
         for start, k in plan:
             valid = min(k, F - start)
@@ -328,32 +321,28 @@ class Encoder:
                     compression_threshold=cfg.compression_threshold,
                     max_q=cfg.max_q,
                 )
-            with clock.stage("wait"):
-                seg = stats_d.cpu().numpy()  # waits for the segment
-                words = words_d.cpu().numpy()
-                raw = raw_d.cpu().numpy() if raw_d.shape[0] else None
-            clock.count("down_n", 2 + (raw is not None))
-            with clock.stage("unpack"):
-                nnz_all[start : start + valid] = seg[:, :C]
-                scales_all[start : start + valid] = seg[:, C : 2 * C].view(
-                    np.float32
-                )
-                raw_mask_all[start : start + valid] = seg[:, 2 * C] != 0
-                pair_parts.append(pairs_from_words(words))
-                if raw is not None:
-                    # channel-major flatten — the reference's actual storage
-                    # layout (codec.rs:471-503, quirk Q13)
-                    raw_parts.append(raw.reshape(-1, C * frame_size))
+            with clock.stage("wait"):  # waits for the segment
+                torch.from_numpy(seg_stats[start : start + valid]).copy_(
+                    stats_d)
+            clock.count("down_n")
+            word_parts.append(words_d)
+            if raw_d.shape[0]:
+                # channel-major flatten — the reference's actual storage
+                # layout (codec.rs:471-503, quirk Q13)
+                raw_parts.append(raw_d.reshape(-1, C * frame_size))
+
+        with clock.stage("wait"):
+            pairs_all = download_concat(word_parts, np.int32)
+            raw_all = download_concat(raw_parts, np.int16, C * frame_size)
+        clock.count("down_n", len(word_parts) + len(raw_parts))
+        with clock.stage("unpack"):
+            nnz_all = seg_stats[:, :C].astype(np.int64)
+            scales_all = np.ascontiguousarray(seg_stats[:, C : 2 * C]).view(
+                np.float32)
+            raw_mask_all = seg_stats[:, 2 * C] != 0
 
         with clock.stage("assemble"):
-            pairs_all = np.concatenate(pair_parts)
-            raw_all = (
-                np.concatenate(raw_parts)
-                if raw_parts
-                else np.empty((0, C * frame_size), np.int16)
-            )
-            del (pair_parts, raw_parts, seg, words, raw, stats_d, words_d,
-                 raw_d)
+            del word_parts, raw_parts, stats_d, words_d, raw_d
             fs = FrameSet(nnz_all, pairs_all, scales_all, raw_mask_all,
                           raw_all, frame_size)
             return EncodedAudio(

@@ -164,13 +164,16 @@ def planarize(xinter: torch.Tensor, channels: int, lead: int, n: int,
 
 
 def compact_pairs(q: torch.Tensor) -> torch.Tensor:
-    """Kept (k, q) pairs of q [..., C, n] as int32 words
-    ``(k << 16) | (q & 0xFFFF)``, in row-major order — frame, channel,
+    """Kept (k, q) pairs of q [..., C, n] as int32 words in the .glc byte
+    layout: ``q·65536 + k`` has the bits ``k | (q << 16)``, so a word's
+    little-endian bytes are bincode's (u16 k, i16 q) and the host views
+    the words as `PAIR_DTYPE` with no pass over them (k < 65536, q an
+    i16, so no word overflows).  Row-major order — frame, channel,
     ascending k: the .glc stream order (codec.rs:462-541).  Exactly
     sum(nnz) words; there is no budget and no overflow path."""
     n = q.shape[-1]
     k = torch.arange(n, dtype=torch.int32, device=q.device)
-    words = (k << 16) | (q.to(torch.int32) & 0xFFFF)
+    words = q.to(torch.int32) * 65536 + k
     return torch.masked_select(words, q != 0)
 
 

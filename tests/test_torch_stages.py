@@ -8,8 +8,9 @@ boundaries, on the CPU.
   ``wall_ms`` (they are disjoint parts of it, on one clock).
   `encode_many`'s counts: the sum of its tracks' per-file counts, exact.
 - The spans: ``glc.encode`` once a track, its stages nested in it
-  (``prep`` and ``assemble`` once, ``disp`` once a segment and once for
-  the upload, ``wait`` and ``unpack`` once a segment),
+  (``prep``, ``unpack`` and ``assemble`` once, ``disp`` once a segment
+  and once for the upload, ``wait`` once a segment and once for the
+  pairs' and raw rows' downloads after the last),
   ``glc.container.serialize`` once a `serialize_encoded`, and the
   decode's ``glc.decode.{pack,disp,wait}`` where its hook has stages.
 - Off (no `stats`, no profiler): a stage reads no clock and opens no span.
@@ -134,8 +135,9 @@ def test_stages_are_nested_spans_under_a_profiler(enc, entry, with_stats):
     assert names["glc.encode"] == len(items)
     assert names["glc.encode.prep"] == names["glc.encode.assemble"] == len(
         items)
-    assert names["glc.encode.disp"] == len(items) + segs
-    assert names["glc.encode.wait"] == names["glc.encode.unpack"] == segs
+    assert names["glc.encode.unpack"] == len(items)
+    assert names["glc.encode.disp"] == names["glc.encode.wait"] == len(
+        items) + segs
     assert names["glc.container.serialize"] == len(items)
     calls = [(a, b) for name, a, b in spans if name == "glc.encode"]
     for name, a, b in spans:
@@ -233,5 +235,6 @@ def test_cuda_stages_are_inert_and_spanned():
     items = tracks("encode_many")
     segs = sum(segments(s, c) for s, c in items)
     assert names["glc.encode"] == len(items)
-    assert names["glc.encode.unpack"] == segs
+    assert names["glc.encode.unpack"] == len(items)
+    assert names["glc.encode.wait"] == len(items) + segs
     assert names["glc.container.serialize"] == len(items)
