@@ -68,6 +68,9 @@ PRODUCER_NAME = "glc-decode-producer"
 # The keys of the `stats=` hook (`Decoder.decode_i16_stream`), the JAX
 # package's.
 STATS_KEYS = ("pack_ms", "disp_ms", "wait_ms", "up_n", "down_n")
+# The counts `Decoder.decode_many`'s hook adds: how its single-chunk tracks
+# batch.
+GROUP_KEYS = ("group_n", "group_tracks_n", "group_rows_n")
 
 
 def gapless_trim_bounds(pre_len: int, gapless_info, channels: int,
@@ -303,13 +306,14 @@ class Decoder:
         the card's.  The consumer's time between two chunks lands in no
         key.  Output is identical with or without the hook.
         """
+        clock = StageClock(stats, STATS_KEYS, "decode")
         for _pos, flat in self._pipelined_i16_chunks(
-            [(0, encoded)], chunk_frames=chunk_frames, stats=stats
+            [(0, encoded)], clock, chunk_frames=chunk_frames
         ):
             yield flat
 
-    def _pipelined_i16_chunks(self, recs, chunk_frames: Optional[int] = None,
-                              stats: Optional[dict] = None):
+    def _pipelined_i16_chunks(self, recs, clock: StageClock,
+                              chunk_frames: Optional[int] = None):
         """Core of the int16 decode surfaces: drive the tracks in `recs` (a
         list of ``(pos, EncodedAudio)``) chunk by chunk through the device
         with one `_PIPELINE_DEPTH`-deep window of chunks in flight, yielding
@@ -318,12 +322,11 @@ class Decoder:
         Each chunk's int16 hops are queued to the host as a `_Download`;
         chunk i is handed on only after waiting on chunk i's event, never
         on the whole device, so the host's work on chunk i overlaps the
-        device's on the chunks after it.  `stats`: see
-        `decode_i16_stream`.
+        device's on the chunks after it.  `clock` times the stages and
+        counts the transfers of `decode_i16_stream`'s hook.
         """
         cfg = self.config
         n = cfg.n
-        clock = StageClock(stats, STATS_KEYS, "decode")
 
         # per-track trim state: pos -> [skip_left, emitted, limit]
         trim_state: dict = {}
@@ -412,13 +415,27 @@ class Decoder:
         larger one, so a batched track can differ from `decode_i16` by
         1 LSB there.  Each result owns its memory.
 
-        `stats` goes to `_pipelined_i16_chunks`'s stage-attribution hook
-        (see `decode_i16_stream`) for the multi-chunk tracks only, as in
-        the JAX package: the single-chunk groups and the empty tracks are
-        not counted.
+        `stats`, if given, accumulates `decode_i16_stream`'s keys over the
+        whole call, the single-chunk groups' and the multi-chunk tracks'
+        alike, each stage also the span of its name while a profiler
+        records: a group's input build is ``pack_ms``, its uploads, its
+        launch and its download that does not block ``disp_ms``, and the
+        wait on its download with each track's trim and copy ``wait_ms``.
+        ``up_n`` and ``down_n`` count a group's transfers as a chunk's.
+        Three more counts say how the tracks batch (`GROUP_KEYS`):
+
+        * ``group_n`` — single-chunk groups, one pass and one
+          `imdct_window` launch each;
+        * ``group_tracks_n`` — the tracks decoded in them;
+        * ``group_rows_n`` — the rows those launches take, frames ×
+          channels.
+
+        The empty tracks' `decode_i16` is not counted.  Output is identical
+        with or without the hook.
         """
         cfg = self.config
         n = cfg.n
+        clock = StageClock(stats, STATS_KEYS + GROUP_KEYS, "decode")
         results: list = [None] * len(encoded_list)
         groups: dict = {}
         multis: list = []
@@ -443,39 +460,45 @@ class Decoder:
             ]
             carries = torch.zeros((len(recs), C, n), dtype=torch.float32,
                                   device=self.device)
-            rows, _carries = self._decode_parts(parts, carries, True)
-            handles.append((recs, _Download(rows, out_i16=True)))
+            rows, _carries = self._decode_parts(parts, carries, True, clock)
+            with clock.stage("disp"):
+                handles.append((recs, _Download(rows, out_i16=True)))
+            clock.count("down_n")
+            clock.count("group_n")
+            clock.count("group_tracks_n", len(recs))
+            clock.count("group_rows_n", C * sum(p[2] for p in parts))
 
         # the multi-chunk tracks run while the groups' downloads drain
         if multis:
-            self._decode_streaming_pipelined(multis, results, stats)
+            self._decode_streaming_pipelined(multis, results, clock)
 
         for i, ea in empties:
             results[i] = self.decode_i16(ea)
 
         for recs, download in handles:
-            out = download.wait()  # [Σ (F + 1), n, C]: hops and tail a track
-            o = 0
-            for i, ea in recs:
-                rows = ea.frame_set.num_frames + 1
-                flat = out[o : o + rows].reshape(-1)
-                o += rows
-                # copy: the trim is a view into the group's download
-                results[i] = gapless_trim(
-                    flat, ea.gapless_info, ea.header.channels,
-                    cfg.reference_compat,
-                ).copy()
+            with clock.stage("wait"):
+                out = download.wait()  # [Σ (F + 1), n, C]: hops, tail a track
+                o = 0
+                for i, ea in recs:
+                    rows = ea.frame_set.num_frames + 1
+                    flat = out[o : o + rows].reshape(-1)
+                    o += rows
+                    # copy: the trim is a view into the group's download
+                    results[i] = gapless_trim(
+                        flat, ea.gapless_info, ea.header.channels,
+                        cfg.reference_compat,
+                    ).copy()
         return results
 
     def _decode_streaming_pipelined(self, recs, results,
-                                    stats: Optional[dict] = None) -> None:
+                                    clock: StageClock) -> None:
         """Multi-chunk tracks (decoder.py:753-770): the
         tracks of `recs` (``(index, EncodedAudio)``) one after another
         through `_pipelined_i16_chunks`, with one window of chunks in flight
         across track boundaries.  Each track equals its `decode_i16` bit for
-        bit (the same chunks)."""
+        bit (the same chunks).  `clock` goes to `_pipelined_i16_chunks`."""
         parts: dict = {i: [] for i, _ea in recs}
-        for i, flat in self._pipelined_i16_chunks(recs, stats=stats):
+        for i, flat in self._pipelined_i16_chunks(recs, clock):
             parts[i].append(flat)
         for i, _ea in recs:
             results[i] = (np.concatenate(parts[i]) if parts[i]

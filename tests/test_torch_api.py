@@ -64,6 +64,8 @@ N, FRAME = 1024, 2048
 ENCODE_KEYS = {"disp_ms", "wait_ms", "up_n", "down_n", "wall_ms", "prep_ms",
                "unpack_ms", "assemble_ms"}
 DECODE_KEYS = {"pack_ms", "disp_ms", "wait_ms", "up_n", "down_n"}
+# the counts decode_many adds for its single-chunk groups
+GROUP_KEYS = {"group_n", "group_tracks_n", "group_rows_n"}
 # The decode's uploads a chunk: pair positions, pair values, raw rows,
 # scales, raw frames' indices (Decoder._decode_parts)
 UPLOADS_PER_CHUNK = 5
@@ -223,10 +225,11 @@ def test_decode_many_stats_hook_counts_the_multi_chunk_tracks():
     """The stats part of tests/test_decode_many.py:272-330 on the port: one
     decode_many over mono and stereo multi-chunk tracks, a single-chunk and
     an empty track, equal with and without the hook; the hook counts the
-    multi-chunk tracks' transfers only, as the JAX package's does.  The
-    multi-chunk tracks equal their decode_i16 (the same chunks); the
-    batched single-chunk track is within 1 LSB of it on the CPU
-    (tests/test_torch_album.py says why)."""
+    multi-chunk tracks' transfers, and the single-chunk group's as a
+    chunk's (the JAX package's counts the multi-chunk tracks only), with
+    the group's own counts beside them.  The multi-chunk tracks equal
+    their decode_i16 (the same chunks); the batched single-chunk track is
+    within 1 LSB of it on the CPU (tests/test_torch_album.py says why)."""
     cfg = CodecConfig(decode_chunk_frames=32)
     eas = mixed_playlist(Encoder(RATE, device="cpu"))
     dec = Decoder(2, RATE, config=cfg, device="cpu")
@@ -235,12 +238,16 @@ def test_decode_many_stats_hook_counts_the_multi_chunk_tracks():
     got = dec.decode_many(eas, stats=stats)
     for a, b in zip(got, plain, strict=True):
         np.testing.assert_array_equal(a, b)
-    assert set(stats) == DECODE_KEYS
+    assert set(stats) == DECODE_KEYS | GROUP_KEYS
     multi = [ea for ea in eas if ea.frame_set.num_frames > 32]
     multi_chunks = sum(chunks_of(ea, 32) for ea in multi)
     assert len(multi) == 3 and multi_chunks > len(multi)
-    assert stats["up_n"] == UPLOADS_PER_CHUNK * multi_chunks
-    assert stats["down_n"] == multi_chunks
+    # the one single-chunk track: one group, one pass
+    (single,) = [ea for ea in eas if 0 < ea.frame_set.num_frames <= 32]
+    assert stats["up_n"] == UPLOADS_PER_CHUNK * (multi_chunks + 1)
+    assert stats["down_n"] == multi_chunks + 1
+    assert (stats["group_n"], stats["group_tracks_n"],
+            stats["group_rows_n"]) == (1, 1, single.frame_set.num_frames)
     for ea, out in zip(eas, got):
         want = dec.decode_i16(ea)
         if ea.frame_set.num_frames > 32:
@@ -453,7 +460,8 @@ def test_cuda_stats_hooks_are_inert(cuda_device):
         np.testing.assert_array_equal(a, b)
     multi_chunks = sum(chunks_of(x, 32) for x in eas
                        if x.frame_set.num_frames > 32)
-    assert st["down_n"] == multi_chunks
+    assert st["down_n"] == multi_chunks + st["group_n"]
+    assert st["group_n"] == 1
 
 
 @pytest.mark.cuda
