@@ -35,6 +35,20 @@ Phases, each printing its own line(s):
    TF32 peak and the bytes at the HBM rate).  The decode's calls of the
    kernel are recorded by row count, and the run fails if a path launched
    it at a row count this phase did not check;
+4b. scatter_pairs — the decode's dense q from the container's pair words
+   at a film chunk (1408 x 6 rows), a CD chunk (1408 x 2) and the bank's
+   smallest and largest passes (168 and 6533 mono rows), seeded rows of
+   about 400, 80 and 80 pairs at ascending k: the kernel against its plain
+   PyTorch version and against the host path it replaced (chunk_pairs +
+   dense_q of tests/pair_oracle.py), bit for bit, one launch a call;
+   single-call (median of 20) and back-to-back device times of the kernel,
+   the plain version and dense_q (the yardstick), beside the bytes bound
+   4·P + 8·(rows + 1) + 2·rows·n at 3.35 TB/s; the host's time a pair of
+   the words' pack against chunk_pairs.  Every decode phase below counts
+   one scatter_pairs launch a pass beside imdct_window's; the paths'
+   launches (the Decoder's passes, the sharded album decode's blocks) are
+   recorded by (row count, n), and the run fails if one of them differs
+   from the plain version on seeded words of that shape;
 5. encode kernels — mdct_rows (3xTF32 wgmma fed by TMA) and band_energy
    (a warp a row, each band cut into 33-bin compensated sums that the
    lanes take and fold in order, rows streamed by cp.async), the encode's
@@ -268,6 +282,10 @@ checked against the wrapper's, beside the chooser's pick and a float64
 torch.matmul, and fits each build's unit time (`f64_plans`: the
 measurement behind kernels.F64_UNIT_US);
 
+    python3 chip_smoke.py --scatter-pairs
+
+runs phase 4b alone and prints its numbers as one JSON line;
+
     python3 chip_smoke.py --path-sweep [OUT.json]
 
 measures, at every n from 1 to 1024 and on several seeds' rows, each
@@ -288,6 +306,7 @@ import json
 import multiprocessing
 import os
 import pickle
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -311,20 +330,21 @@ from glc_tpu_torch import album, cli, native, parallel, playback, profiling
 # signal and metrics, trace reading and playback sink, which this script
 # shares
 from glc_tpu_torch.bench import (
-    PEAK_TF32_FLOPS, CaptureSink, band_bound, device_busy_ms, device_ms,
-    kernel_bound, mdct_bound, quality_metrics, seeded_rows,
+    PEAK_HBM_BYTES, PEAK_TF32_FLOPS, CaptureSink, band_bound, device_busy_ms,
+    device_ms, kernel_bound, mdct_bound, quality_metrics, seeded_rows,
 )
 from glc_tpu_torch.bench import make_signal as make_quality_signal
 from glc_tpu_torch.bench import make_signal_i16 as make_bench_signal_i16
-from glc_tpu_torch.codec.decoder import (
-    PRODUCER_NAME, chunk_pairs, gapless_trim_bounds,
-)
+from glc_tpu_torch.codec import decoder as decoder_mod
+from glc_tpu_torch.codec.decoder import PRODUCER_NAME, gapless_trim_bounds
 from glc_tpu_torch.codec.encoder import upload_geometry
 from glc_tpu_torch.codec.tables import (
     chunk_size_for, get_codec_tables, get_device_tables, pow2_bucket,
 )
 from glc_tpu_torch.config import DEFAULT_CONFIG
-from glc_tpu_torch.container.schema import EncodedAudio, ProgressKind
+from glc_tpu_torch.container.schema import (
+    PAIR_DTYPE, EncodedAudio, FrameSet, ProgressKind,
+)
 from glc_tpu_torch.controller import CodecController
 from glc_tpu_torch.flac import bitpack
 from glc_tpu_torch.flac.decoder import decode_flac
@@ -343,8 +363,9 @@ from glc_tpu_torch.ops import psycho as psycho_ops
 from glc_tpu_torch.ops import kernels
 from glc_tpu_torch.ops.kernels import (
     band_energy, band_energy_reference, imdct_window, imdct_window_reference,
-    mdct_rows, mdct_rows_reference,
+    mdct_rows, mdct_rows_reference, scatter_pairs, scatter_pairs_reference,
 )
+from glc_tpu_torch.parallel import album as parallel_album
 from glc_tpu_torch.parallel.mesh import mesh_shape
 from glc_tpu_torch.parity import (
     MAX_FLIP_RATE, check_containers, dense_pair_flips,
@@ -354,9 +375,12 @@ from glc_tpu_torch.parity import (
 # decoder to it
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from test_torch_album import launch_rows  # noqa: E402
+# the host path the decode's pair words replaced: scatter_pairs' yardstick
+from pair_oracle import chunk_pairs, dense_q  # noqa: E402
 # the stats hooks' keys and counts, as the tests pin them
 from test_torch_api import (  # noqa: E402
-    DECODE_KEYS, ENCODE_KEYS, UPLOADS_PER_CHUNK, chunks_of, encode_down_n,
+    DECODE_KEYS, ENCODE_KEYS, GROUP_KEYS, UPLOADS_PER_CHUNK, chunks_of,
+    encode_down_n,
 )
 # the n of the cuda tests' every-n cases, whose rows --path-sweep also runs
 from test_torch_kernels import GEOMETRY_NS as TEST_GEOMETRY_NS  # noqa: E402
@@ -379,6 +403,11 @@ BAND_RTOL = 1e-5       # sums of squares: positive, no cancellation
 KERNEL_EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
 PLAN_CHECK_ROWS = 8192  # the rows every mdct_rows plan runs on
 KERNEL_NAMES = ("imdct_window", "mdct_rows", "band_energy")
+# scatter_pairs' passes (phase 4b, --scatter-pairs) at hop 1024: (name,
+# frames, channels, pairs a row on average): a film chunk (1408 frames x
+# 6), a CD chunk (x 2), the bank's smallest and largest passes (mono)
+SCATTER_SHAPES = (("film chunk", 1408, 6, 400), ("CD chunk", 1408, 2, 80),
+                  ("bank pass", 168, 1, 80), ("bank pass", 6533, 1, 80))
 INVARIANCE_CHUNKS = (4096, 512, 1000)  # encode_chunk_frames of phase 8
 QUALITY_SECONDS = 5.0  # bench.py's quality_stereo_5s
 QUALITY_TOL_DB = 0.2   # card vs CPU SNR
@@ -653,6 +682,10 @@ GEOMETRY_LAUNCHED: dict[str, dict[int, set[int]]] = {
     name: {} for name in KERNEL_NAMES}
 
 
+# (row count, n) of every scatter_pairs launch of the paths, any n or rate
+SCATTER_LAUNCHED: set[tuple[int, int]] = set()
+
+
 # rate -> kernel -> the row counts the conformance phase launched it with
 # (at the default n, at that rate's tables); the rate its calls go to
 RATE_LAUNCHED: dict[int, dict[str, set[int]]] = {}
@@ -685,12 +718,17 @@ def recording_rate(rate: int):
         _RECORDING_RATE[0] = None
 
 
-def record_launch_rows(record=record_rows):
-    """Route the paths' calls of the three kernel wrappers on the card
-    through `record(kernel, row count, n)` (a CPU call runs the plain
-    version and is not recorded); the wrappers themselves, and their
-    launch counts, stay as they are (the kernel phases call them
-    directly)."""
+def record_scatter_rows(rows: int, n: int) -> None:
+    SCATTER_LAUNCHED.add((rows, n))
+
+
+def record_launch_rows(record=record_rows, record_scatter=record_scatter_rows):
+    """Route the paths' calls of the three row kernels' wrappers on the
+    card through `record(kernel, row count, n)`, and those of scatter_pairs
+    (by the Decoder and the sharded album decode) through
+    `record_scatter(row count, n)` (a CPU call runs the plain version and
+    is not recorded); the wrappers themselves, and their launch counts,
+    stay as they are (the kernel phases call them directly)."""
     def wrap(module, name):
         wrapper = getattr(module, name)
         per_n = 2 if name == "mdct_rows" else 1  # win's rows are 2n wide
@@ -706,9 +744,17 @@ def record_launch_rows(record=record_rows):
     wrap(mdct_ops, "mdct_rows")
     wrap(psycho_ops, "band_energy")
 
+    def scatter_recorded(words, row_off, rows, n):
+        if words.is_cuda:
+            record_scatter(rows, n)
+        return scatter_pairs(words, row_off, rows, n)
+
+    decoder_mod.scatter_pairs = scatter_recorded
+    parallel_album.scatter_pairs = scatter_recorded
+
 
 def reset_launches() -> None:
-    for fn in (imdct_window, mdct_rows, band_energy):
+    for fn in (imdct_window, mdct_rows, band_energy, scatter_pairs):
         fn.launches = 0
     for fn in (imdct_window, mdct_rows):
         fn.f64_launches = 0
@@ -716,7 +762,21 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches
-            for fn in (imdct_window, mdct_rows, band_energy)}
+            for fn in (imdct_window, mdct_rows, band_energy, scatter_pairs)}
+
+
+def reset_decode_launches() -> None:
+    imdct_window.launches = scatter_pairs.launches = 0
+
+
+def decode_passes() -> int:
+    """The decode passes since `reset_decode_launches`: imdct_window's
+    launches, each pass's one scatter_pairs launch checked beside them."""
+    if scatter_pairs.launches != imdct_window.launches:
+        raise AssertionError(f"{imdct_window.launches} decode passes "
+                             f"launched scatter_pairs "
+                             f"{scatter_pairs.launches} times")
+    return imdct_window.launches
 
 
 def mdct_floor(M: int, n: int) -> float:
@@ -933,6 +993,127 @@ def phase_kernel(tables, design: str, rows):
     return result
 
 
+def scatter_frame_set(frames: int, channels: int, per_row: int,
+                      n: int, seed: int) -> FrameSet:
+    """A FrameSet whose rows hold about `per_row` pairs each, at distinct
+    ascending k as the encoder writes them, with seeded nonzero q."""
+    rng = np.random.default_rng(seed)
+    kept = rng.random((frames * channels, n)) < per_row / n
+    _rows, k = np.nonzero(kept)
+    pairs = np.empty(len(k), PAIR_DTYPE)
+    pairs["k"] = k
+    pairs["q"] = rng.integers(1, 32768, len(k)) * rng.choice([-1, 1], len(k))
+    return FrameSet(kept.sum(axis=1).reshape(frames, channels), pairs,
+                    np.ones((frames, channels), np.float32),
+                    np.zeros(frames, bool),
+                    np.empty((0, 2 * n * channels), np.int16), 2 * n)
+
+
+def phase_scatter_pairs(smi: str) -> dict:
+    """scatter_pairs at the decode's passes (`SCATTER_SHAPES`): the kernel
+    against its plain version on the card, bit for bit, and against the
+    host path it replaced (`chunk_pairs` + `dense_q`), one launch a call;
+    the device times (medians of 20 single calls with CUDA events, and
+    `device_ms` back to back) of the kernel, the plain version and
+    `dense_q` (zeros + index_put_ of the host's unique positions, the
+    yardstick: neither runs on the main path), beside the bytes bound
+    4·P + 8·(rows + 1) + 2·rows·n at the HBM rate; and the host's time a
+    pair (medians of 5) of `chunk_pairs` against the words' pack (a view
+    and the rows' offsets).  Returns {rows: numbers}."""
+    n = DEFAULT_CONFIG.n
+    info = kernels.kernel_info()["scatter_pairs"]
+    print(f"[scatter_pairs] build: {info['registers']} regs/thread, "
+          f"{info['local_bytes']} B local (spills), smem "
+          f"{info['static_smem']} B static + {info['dynamic_smem']} B "
+          f"dynamic at n = 1024")
+    if info["local_bytes"]:
+        raise AssertionError(f"scatter_pairs spills {info['local_bytes']} B")
+    result = {}
+    for name, frames, C, per_row in SCATTER_SHAPES:
+        rows = frames * C
+        fs = scatter_frame_set(frames, C, per_row, n, seed=rows)
+        P = len(fs.pairs)
+
+        def pack():
+            words = fs.pairs.view(np.int32)
+            row_off = np.zeros(rows + 1, np.int64)
+            np.cumsum(fs.nnz.reshape(-1), out=row_off[1:])
+            return words, row_off
+
+        host_ms = [statistics.median(_wall(fn) for _ in range(5)) * 1e3
+                   for fn in (pack, lambda: chunk_pairs(fs, 0, frames, 0, n))]
+        words, row_off = pack()
+        w = torch.from_numpy(words).cuda()
+        off = torch.from_numpy(row_off).cuda()
+        pos, vals = (torch.from_numpy(a).cuda()
+                     for a in chunk_pairs(fs, 0, frames, 0, n))
+        before = scatter_pairs.launches
+        got = scatter_pairs(w, off, rows, n)
+        launched = scatter_pairs.launches - before
+        plain = scatter_pairs_reference(w, off, rows, n)
+        host = dense_q(pos, vals, frames, C, n).view(rows, n)
+        torch.cuda.synchronize()
+        if launched != 1 or not (torch.equal(got, plain)
+                                 and torch.equal(got, host)):
+            raise AssertionError(f"scatter_pairs at {rows} rows: {launched} "
+                                 f"launches, equal to plain "
+                                 f"{torch.equal(got, plain)}, to the host "
+                                 f"path {torch.equal(got, host)}")
+        fns = {"kernel": lambda: scatter_pairs(w, off, rows, n),
+               "plain": lambda: scatter_pairs_reference(w, off, rows, n),
+               "dense_q": lambda: dense_q(pos, vals, frames, C, n)}
+        single = {k: _median_ms(fn) for k, fn in fns.items()}
+        b2b = {k: device_ms(fn) for k, fn in fns.items()}
+        nbytes = 4 * P + 8 * (rows + 1) + 2 * rows * n
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        result[rows] = {
+            "name": name, "rows": rows, "pairs": P, "bytes": nbytes,
+            "bound_ms": bound_ms, "ms": single["kernel"],
+            "plain_ms": single["plain"], "dense_q_ms": single["dense_q"],
+            "device_ms": b2b["kernel"], "device_plain_ms": b2b["plain"],
+            "device_dense_q_ms": b2b["dense_q"],
+            "roofline": bound_ms / b2b["kernel"],
+            "host_pack_ns_per_pair": host_ms[0] * 1e6 / P,
+            "host_chunk_pairs_ns_per_pair": host_ms[1] * 1e6 / P}
+        print(f"[scatter_pairs] {name}, {rows} rows ({frames} x {C}), {P} "
+              f"pairs ({smi}): == plain and == chunk_pairs + dense_q bit for "
+              f"bit, 1 launch; single call (median of 20) kernel "
+              f"{single['kernel']:.4f} ms, plain {single['plain']:.4f} ms, "
+              f"dense_q {single['dense_q']:.4f} ms; back to back kernel "
+              f"{b2b['kernel']:.4f} ms ({100 * bound_ms / b2b['kernel']:.1f}% "
+              f"of the bound {bound_ms:.4f} ms, {nbytes} B at 3.35 TB/s), "
+              f"plain {b2b['plain']:.4f} ms, dense_q {b2b['dense_q']:.4f} ms; "
+              f"host a pair: the words' pack "
+              f"{result[rows]['host_pack_ns_per_pair']:.3f} ns, chunk_pairs "
+              f"{result[rows]['host_chunk_pairs_ns_per_pair']:.3f} ns")
+    return result
+
+
+def check_scatter_launched() -> None:
+    """scatter_pairs against its plain version on the card, bit for bit,
+    at every (row count, n) the paths launched it with (SCATTER_LAUNCHED),
+    on seeded words: rows of 0-160 pairs at k over [0, n + 8), so with
+    out-of-range k and duplicate positions, and full-range q."""
+    if not SCATTER_LAUNCHED:
+        raise AssertionError("the paths' scatter_pairs launches were not "
+                             "recorded")
+    for rows, n in sorted(SCATTER_LAUNCHED, reverse=True):
+        rng = np.random.default_rng(rows * 65536 + n)
+        nnz = rng.integers(0, 161, rows)
+        pairs = np.empty(int(nnz.sum()), PAIR_DTYPE)
+        pairs["k"] = rng.integers(0, n + 8, len(pairs))
+        pairs["q"] = rng.integers(-32768, 32768, len(pairs))
+        w = torch.from_numpy(pairs.view(np.int32)).cuda()
+        off = torch.from_numpy(decoder_mod.row_offsets(nnz)).cuda()
+        if not torch.equal(scatter_pairs(w, off, rows, n),
+                           scatter_pairs_reference(w, off, rows, n)):
+            raise AssertionError(f"scatter_pairs at {rows} rows, n = {n}: "
+                                 f"!= plain")
+    print(f"[kernel] the paths launched scatter_pairs at (rows, n) "
+          f"{sorted(SCATTER_LAUNCHED, reverse=True)}, each checked against "
+          f"the plain version on seeded words, bit for bit")
+
+
 def make_signal(seconds: int = SECONDS, rate: int = SAMPLE_RATE,
                 seed: int = 0, channels: int = 2) -> np.ndarray:
     """Interleaved int16 (stereo by default) from
@@ -992,9 +1173,10 @@ def phase_main(pcm: np.ndarray, smi: str):
         raise AssertionError(f"unexpected segment plan {plan} for {F} frames")
     if raw_frames == 0:
         raise AssertionError("the noise stretch produced no raw frames")
-    if launches != chunks:
+    if launches != chunks or counts["scatter_pairs"] != chunks:
         raise AssertionError(
-            f"imdct_window launched {launches} times for {chunks} chunks")
+            f"imdct_window launched {launches} times and scatter_pairs "
+            f"{counts['scatter_pairs']} for {chunks} chunks")
     if counts["mdct_rows"] != len(plan) or counts["band_energy"] != len(plan):
         raise AssertionError(f"the encode's kernels launched {counts} for "
                              f"{len(plan)} segments")
@@ -1005,7 +1187,8 @@ def phase_main(pcm: np.ndarray, smi: str):
           f"== input")
     print(f"[main] encode_pcm16 {t_enc:.3f} s ({audio_s / t_enc:.1f}x "
           f"realtime); decode_i16 {t_dec:.3f} s ({audio_s / t_dec:.1f}x "
-          f"realtime); imdct_window launches {launches} == {chunks} chunks; "
+          f"realtime); imdct_window and scatter_pairs launches {launches} "
+          f"== {chunks} chunks; "
           f"mdct_rows and band_energy launches {counts['mdct_rows']}, "
           f"{counts['band_energy']} == {len(plan)} segments")
     walls = encode_walls(pcm, Encoder)
@@ -1535,11 +1718,11 @@ def phase_export(encoded, out):
     warm = export_flac(dec, encoded)  # warm-up
     t_warm = time.perf_counter() - t0
     parts = []
-    imdct_window.launches = 0
+    reset_decode_launches()
     t0 = time.perf_counter()
     data = export_flac(dec, encoded, parts)
     t_exp = time.perf_counter() - t0
-    launches = imdct_window.launches
+    launches = decode_passes()
 
     chunks = decode_chunks([encoded], cfg.stream_chunk_frames)
     if launches != chunks:
@@ -1581,11 +1764,11 @@ def phase_cli(pcm: np.ndarray):
         glc = wav.with_suffix(".glc")
         flac = wav.with_suffix(".flac")
         write_wav_i16(wav, excerpt, SAMPLE_RATE, 2)
-        imdct_window.launches = 0
+        reset_decode_launches()
         rcs = [cli.main([str(wav)])]
         encoded = load_encoded(glc)
         rcs.append(cli.main(["-d", str(glc)]))
-        launches = imdct_window.launches
+        launches = decode_passes()
         want = Decoder(2, SAMPLE_RATE, device="cuda").decode_i16(encoded)
         samples, rate, channels, _bps = decode_flac(flac.read_bytes())
         if not np.array_equal(samples, want.astype(np.int32)):
@@ -1633,7 +1816,7 @@ def phase_stream(encoded, out):
     cfg = DEFAULT_CONFIG
     dec = Decoder(2, SAMPLE_RATE, device="cuda")
     msgs = []
-    imdct_window.launches = 0
+    reset_decode_launches()
     t0 = time.perf_counter()
     rx = dec.decode_streaming(encoded, msgs.append)
     chunks = []
@@ -1645,7 +1828,7 @@ def phase_stream(encoded, out):
         if c.is_last:
             break
     t_stream = time.perf_counter() - t0
-    launches = imdct_window.launches
+    launches = decode_passes()
     F = encoded.frame_set.num_frames
     want_chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
     if launches != want_chunks:
@@ -1725,9 +1908,9 @@ def phase_album(seconds: int, smi: str):
                                  f"encode_pcm16")
     want = [dec.decode_i16(ea) for ea in solo]
     rows = album_rows(many)
-    imdct_window.launches = 0
+    reset_decode_launches()
     outs = dec.decode_many(many)
-    launches = imdct_window.launches
+    launches = decode_passes()
     if launches != len(rows):
         raise AssertionError(f"decode_many launched imdct_window {launches} "
                              f"times, the geometry says {len(rows)}")
@@ -1759,9 +1942,9 @@ def phase_album_export(many, outs):
             paths.append(Path(tmp) / f"track{i}.glc")
             save_encoded(ea, paths[-1])
         rows = album_rows(many)
-        imdct_window.launches = 0
+        reset_decode_launches()
         samples, rate, channels = album.decode_playlist(paths, device="cuda")
-        launches = imdct_window.launches
+        launches = decode_passes()
         if launches != len(rows):
             raise AssertionError(f"decode_playlist launched imdct_window "
                                  f"{launches} times for {len(rows)}")
@@ -1771,10 +1954,10 @@ def phase_album_export(many, outs):
         flac = Path(tmp) / "album.flac"
         album.export_playlist_to_flac(paths, flac, FLAC_LEVEL,
                                       device="cuda")  # warm-up
-        imdct_window.launches = 0
+        reset_decode_launches()
         t_exp = _wall(lambda: album.export_playlist_to_flac(
             paths, flac, FLAC_LEVEL, device="cuda"))
-        exp_launches = imdct_window.launches
+        exp_launches = decode_passes()
         data = flac.read_bytes()
     stream_chunks = decode_chunks(many, cfg.stream_chunk_frames)
     if exp_launches != stream_chunks:
@@ -1887,7 +2070,8 @@ def api_chunk_programs(pcm: np.ndarray, encoded, out) -> str:
     torch.cuda.synchronize()
     enc_launches = launch_counts()
     q, nnz, scale, raw, use_raw = (t.cpu().numpy() for t in enc_out)
-    if enc_launches != {"imdct_window": 0, "mdct_rows": 1, "band_energy": 1}:
+    if enc_launches != {"imdct_window": 0, "mdct_rows": 1, "band_energy": 1,
+                        "scatter_pairs": 0}:
         raise AssertionError(f"encode_chunk_device launched {enc_launches}")
     # the Encoder's segment as the container holds it: raw frames' q and
     # nnz zeroed and no scales stored for them, pairs in stream order, raw
@@ -1939,7 +2123,8 @@ def api_chunk_programs(pcm: np.ndarray, encoded, out) -> str:
         window_raw=not cfg.reference_compat)
     torch.cuda.synchronize()
     dec_launches = launch_counts()
-    if dec_launches != {"imdct_window": 1, "mdct_rows": 0, "band_energy": 0}:
+    if dec_launches != {"imdct_window": 1, "mdct_rows": 0, "band_energy": 0,
+                        "scatter_pairs": 0}:
         raise AssertionError(f"decode_chunk_device launched {dec_launches}")
     _valid, want = next(dec._chunks(encoded, chunk))
     flat = to_i16(hops).transpose(1, 2).reshape(-1).cpu().numpy()
@@ -1983,24 +2168,26 @@ def phase_api(pcm: np.ndarray, encoded, out, flac: bytes, many, outs,
             serialize_encoded(encoded), ENCODE_KEYS,
             {"up_n": 1, "down_n": encode_down_n(encoded, cfg)},
             {"imdct_window": 0, "mdct_rows": segments,
-             "band_energy": segments}),
+             "band_energy": segments, "scatter_pairs": 0}),
         "decode_i16": (
             lambda st: dec.decode_i16(encoded, stats=st), [out],
             DECODE_KEYS,
             {"up_n": UPLOADS_PER_CHUNK * chunks, "down_n": chunks},
-            {"imdct_window": chunks, "mdct_rows": 0, "band_energy": 0}),
+            {"imdct_window": chunks, "mdct_rows": 0, "band_energy": 0,
+             "scatter_pairs": chunks}),
         "export": (
             lambda st: export_flac(dec, encoded, stats=st), flac, DECODE_KEYS,
             {"up_n": UPLOADS_PER_CHUNK * stream_chunks,
              "down_n": stream_chunks},
             {"imdct_window": stream_chunks, "mdct_rows": 0,
-             "band_energy": 0}),
+             "band_energy": 0, "scatter_pairs": stream_chunks}),
         "decode_many": (
-            lambda st: dec.decode_many(many, stats=st), outs, DECODE_KEYS,
+            lambda st: dec.decode_many(many, stats=st), outs,
+            DECODE_KEYS | GROUP_KEYS,
             {"up_n": UPLOADS_PER_CHUNK * album_chunks,
              "down_n": album_chunks},
             {"imdct_window": album_chunks, "mdct_rows": 0,
-             "band_energy": 0}),
+             "band_energy": 0, "scatter_pairs": album_chunks}),
     }
     result = {}
     for name, (call, want, keys, counts, want_launches) in calls.items():
@@ -2043,13 +2230,13 @@ def play(paths, stop=None, sink_cls=CaptureSink):
     the first append, to the last, kernel launches, printed lines)."""
     log: list = []
     printed = io.StringIO()
-    imdct_window.launches = 0
+    reset_decode_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         playback.play_files_gapless(
             paths, lambda r, c: sink_cls(r, c, log), stop=stop,
             device="cuda")
-    launches = imdct_window.launches
+    launches = decode_passes()
     first = min(s.times[0] for s in log if s.times) - t0
     last = max(s.times[-1] for s in log if s.times) - t0
     return log, first, last, launches, printed.getvalue().splitlines()
@@ -2198,10 +2385,10 @@ def phase_play_cli(tmp: Path, paths, want: np.ndarray, chunks: int):
     try:
         for flags in ([], ["--ffplay"]):
             printed = io.StringIO()
-            imdct_window.launches = 0
+            reset_decode_launches()
             with contextlib.redirect_stdout(printed):
                 rc = cli.main(["-p", *flags, *map(str, paths)])
-            launches = imdct_window.launches
+            launches = decode_passes()
             got = np.fromfile(sink_file, "<f4")
             sink_file.unlink()
             lines = printed.getvalue().splitlines()
@@ -2251,9 +2438,9 @@ def phase_controller(short_items, short_many):
                 raise AssertionError(f"{g.name} != encode_pcm16")
 
         ctl.add_to_playlist([0, 1])
-        imdct_window.launches = 0
+        reset_decode_launches()
         ctl.play_gapless(wait=True)
-        play_launches = imdct_window.launches
+        play_launches = decode_passes()
         snap = ctl.snapshot()
         eas = [load_encoded(g) for g in glcs]
         want_play = decode_chunks(eas, cfg.decode_chunk_frames)
@@ -2267,9 +2454,9 @@ def phase_controller(short_items, short_many):
             raise AssertionError(f"play_gapless: {play_launches} launches "
                                  f"for {want_play} chunks")
 
-        imdct_window.launches = 0
+        reset_decode_launches()
         ctl.export_playlist(tmp / "ctl.flac", FLAC_LEVEL, wait=True)
-        exp_launches = imdct_window.launches
+        exp_launches = decode_passes()
         want_exp = decode_chunks(eas, cfg.stream_chunk_frames)
         if ctl.snapshot().status != "Export complete":
             raise AssertionError(f"export_playlist: {ctl.snapshot()}")
@@ -2301,11 +2488,11 @@ def phase_profile(encoded, out):
         os.environ["GLC_PROFILE"] = tmp
         try:
             for _ in range(2):
-                imdct_window.launches = 0
+                reset_decode_launches()
                 t0 = time.perf_counter()
                 got = dec.decode_i16(encoded)
                 walls.append(time.perf_counter() - t0)
-                launches = imdct_window.launches
+                launches = decode_passes()
                 if not np.array_equal(got, out) or launches != chunks:
                     raise AssertionError(f"traced decode_i16: {launches} "
                                          f"launches for {chunks} chunks, or "
@@ -2480,8 +2667,9 @@ def sharded_rank_run(inputs: Path) -> dict:
     warm = ALBUM_SECONDS[0]
     parallel.encode_album_sharded(mesh, tracks[warm], 2, SAMPLE_RATE)
     parallel.decode_album_sharded(mesh, serial[warm])
-    rows: dict = {name: [] for name in KERNEL_NAMES}
-    record_launch_rows(lambda name, m, _n: rows[name].append(m))
+    rows: dict = {name: [] for name in (*KERNEL_NAMES, "scatter_pairs")}
+    record_launch_rows(lambda name, m, _n: rows[name].append(m),
+                       lambda m, _n: rows["scatter_pairs"].append(m))
     reset_launches()
     res = {"mesh": tuple(mesh.shape),
            "device": str(torch.cuda.current_device())}
@@ -2614,6 +2802,16 @@ def phase_sharded(albums, smi: str) -> dict:
                             f"{res['launches'][kernel]} times at rows {got}, "
                             f"the geometry says {want_rows}")
                     LAUNCHED_ROWS[kernel].update(got)
+                # one scatter_pairs launch a rank for each album's decode,
+                # on the block's rows
+                got = res["rows"]["scatter_pairs"]
+                want = want_rows[:len(ALBUM_SECONDS)]
+                if got != want or res["launches"]["scatter_pairs"] != len(got):
+                    raise AssertionError(
+                        f"{name} rank {r}: scatter_pairs launched "
+                        f"{res['launches']['scatter_pairs']} times at rows "
+                        f"{got}, the geometry says {want}")
+                SCATTER_LAUNCHED.update((m, DEFAULT_CONFIG.n) for m in got)
             mses[name] = first[ROUNDTRIP_COMMON]
             summary[name] = {"launches": [[r["launches"][k]
                                            for k in KERNEL_NAMES]
@@ -2694,7 +2892,8 @@ def geometry_round_trip(hop: int, rate: int, smi: str) -> dict:
         counts[name] = getattr(kernels, of).f64_launches
     chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
     want = {"imdct_window": chunks, "mdct_rows": len(plan),
-            "band_energy": len(plan), "imdct_window_f64": chunks * f64,
+            "band_energy": len(plan), "scatter_pairs": chunks,
+            "imdct_window_f64": chunks * f64,
             "mdct_rows_f64": len(plan) * f64}
     if counts != want:
         raise AssertionError(f"hop {hop}: launches {counts}, the geometry "
@@ -3063,8 +3262,9 @@ def phase_f64_path(smi: str) -> dict:
         for name, (segs, bands, imdct) in want.items():
             c = counts[name]
             got = (c["mdct_rows"], c["band_energy"], c["imdct_window"],
-                   c["mdct_rows_f64"], c["imdct_window_f64"])
-            if got != (segs, bands, imdct, segs, imdct):
+                   c["mdct_rows_f64"], c["imdct_window_f64"],
+                   c["scatter_pairs"])
+            if got != (segs, bands, imdct, segs, imdct, imdct):
                 raise AssertionError(
                     f"hop {hop} {name}: launches {c}, the geometry says "
                     f"{segs} segments, {imdct} imdct_window chunks, all f64")
@@ -3184,7 +3384,7 @@ def conformance_case(rate: int, channels: int, smi: str) -> dict:
         f64 = mdct_rows.f64_launches + imdct_window.f64_launches
     chunks = decode_chunks([encoded], cfg.decode_chunk_frames)
     want = {"imdct_window": chunks, "mdct_rows": len(plan),
-            "band_energy": len(plan)}
+            "band_energy": len(plan), "scatter_pairs": chunks}
     if counts != want or f64:
         raise AssertionError(f"{rate} Hz x {channels}: launches {counts} "
                              f"(f64 path {f64}), the geometry says {want}")
@@ -3257,11 +3457,11 @@ def conformance_full_size(label: str, seconds: int, rate: int,
     if rcs != [0, 0, 0]:
         raise AssertionError(f"{label}: CLI exit codes {rcs}")
     if enc_counts != {"imdct_window": 0, "mdct_rows": len(plan),
-                      "band_energy": len(plan)}:
+                      "band_energy": len(plan), "scatter_pairs": 0}:
         raise AssertionError(f"{label}: the CLI encode launched {enc_counts} "
                              f"for {len(plan)} segments")
     if dec_counts != {"imdct_window": chunks, "mdct_rows": 0,
-                      "band_energy": 0}:
+                      "band_energy": 0, "scatter_pairs": chunks}:
         raise AssertionError(f"{label}: the CLI decode launched {dec_counts} "
                              f"for {chunks} chunks")
     if (frate, fch, bps) != (rate, channels, 16) or not np.array_equal(
@@ -3456,11 +3656,14 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--path-sweep"] and len(argv) <= 2:
         path_sweep(smi, argv[1] if len(argv) == 2 else None)
         return 0
+    if argv == ["--scatter-pairs"]:
+        print(json.dumps({"scatter_pairs": phase_scatter_pairs(smi)}))
+        return 0
     if argv:
         print("usage: python3 chip_smoke.py [--encode-ab OTHER_CHECKOUT | "
               "--encode-kernels-ab | --kernel-ab OTHER_CHECKOUT | "
-              "--mdct-plans | --f64-plans | --path-sweep [OUT.json]]",
-              file=sys.stderr)
+              "--mdct-plans | --f64-plans | --path-sweep [OUT.json] | "
+              "--scatter-pairs]", file=sys.stderr)
         return 2
     record_launch_rows()
     phase_warmup()
@@ -3474,6 +3677,7 @@ def main(argv: list[str]) -> int:
     kern.update(phase_encode_kernels(
         tables, designs,
         sorted(set(encode_rows(pcm)) | set(KERNEL_EDGES), reverse=True)))
+    scatter = phase_scatter_pairs(smi)
     encoded, out, launches = phase_main(pcm, smi)
     phase_cpu(pcm, encoded, out)
     phase_invariance(pcm, encoded)
@@ -3506,6 +3710,7 @@ def main(argv: list[str]) -> int:
         print(f"[kernel] the paths launched {kernel} at rows "
               f"{sorted(LAUNCHED_ROWS[kernel], reverse=True)}, each checked "
               f"against the plain version above")
+    check_scatter_launched()
 
     # kernel: (source, what it replaces, the main path's rows to report)
     table = {
@@ -3572,6 +3777,22 @@ def main(argv: list[str]) -> int:
                 "traced": r["traced"]} for hop, r in f64_path.items()},
             "geometry": geometry[kernel],
         })
+    # scatter_pairs at a film chunk, the others under "passes"
+    film = scatter[SCATTER_SHAPES[0][1] * SCATTER_SHAPES[0][2]]
+    entries.append({
+        "name": "scatter_pairs",
+        "route": "cuda",
+        "source": "glc_tpu_torch/csrc/scatter_pairs.cu",
+        "replaces": "no TPU kernel: the host's chunk_pairs pass and dense_q",
+        "launches": launches["scatter_pairs"],
+        **{key: film[key] for key in (
+            "ms", "plain_ms", "bound_ms", "rows", "device_ms",
+            "device_plain_ms")},
+        "bound_by": "bytes",
+        "library_ms": film["dense_q_ms"],
+        "device_library_ms": film["device_dense_q_ms"],
+        "passes": scatter,
+    })
     entries[0]["sharded"] = sharded
     entries[0]["conformance"] = conformance["summary"]
     print(json.dumps({"kernels": entries}))

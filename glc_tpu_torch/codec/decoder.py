@@ -18,10 +18,12 @@ mirrors the reference (reference src/codec.rs:571-768):
 
 The frames are decoded in chunks of ``chunk_size_for(F,
 decode_chunk_frames)``; the overlap carry between chunks stays on the
-device.  Per chunk the host uploads the pair positions and values, the
-scales and the raw rows, and the device scatters, dequantizes, runs the
-IMDCT+window kernel, selects the raw rows, overlap-adds and (for the int16
-surfaces) converts to int16 before the download.
+device.  Per chunk the host uploads the pairs as the container holds them
+(one int32 word a pair) with each frame·channel row's offset into them,
+the scales and the raw rows, and the device expands the words into dense q
+(`ops.kernels.scatter_pairs`), dequantizes, runs the IMDCT+window kernel,
+selects the raw rows, overlap-adds and (for the int16 surfaces) converts to
+int16 before the download.
 
 There are two chunk loops, one per output type: `_pipelined_i16_chunks`
 (int16: `decode_i16_stream`, `decode_i16`) and the producer thread of
@@ -50,7 +52,8 @@ import torch
 
 from ..config import CodecConfig, DEFAULT_CONFIG
 from ..container.schema import AudioChunk, EncodedAudio, FrameSet, Progress
-from ..ops.decode import decode_stacked, dense_q, to_i16
+from ..ops.decode import decode_stacked, to_i16
+from ..ops.kernels import scatter_pairs
 from ..profiling import maybe_trace
 from .device import NO_STATS, StageClock, resolve_device, upload_concat
 from .tables import chunk_size_for, get_codec_tables
@@ -68,6 +71,8 @@ PRODUCER_NAME = "glc-decode-producer"
 # The keys of the `stats=` hook (`Decoder.decode_i16_stream`), the JAX
 # package's.
 STATS_KEYS = ("pack_ms", "disp_ms", "wait_ms", "up_n", "down_n")
+# The port's own count beside them: the pairs handed to the card as words.
+PAIR_KEYS = ("pairs_n",)
 # The counts `Decoder.decode_many`'s hook adds: how its single-chunk tracks
 # batch.
 GROUP_KEYS = ("group_n", "group_tracks_n", "group_rows_n")
@@ -105,33 +110,27 @@ def frame_offsets(fs: FrameSet):
     return pair_off, raw_off
 
 
-def chunk_pairs(fs: FrameSet, start: int, count: int, pair_start: int,
-                n: int):
-    """Flat positions (frame·C + channel)·n + k (int64, relative to
-    `start`) and values (int16) of the pairs of frames [start,
-    start+count).
+def pair_words(fs: FrameSet, start: int, count: int,
+               pair_off: np.ndarray) -> np.ndarray:
+    """The pairs of frames [start, start+count) as the card takes them
+    (`ops.kernels.scatter_pairs`): a view of `fs.pairs` as int32 words,
+    q·65536 + k, with no copy.  `pair_off` is `frame_offsets(fs)[0]`."""
+    p0, p1 = int(pair_off[start]), int(pair_off[start + count])
+    words = fs.pairs[p0:p1].view(np.int32)
+    if len(words) != p1 - p0:
+        raise ValueError(f"the FrameSet holds {len(fs.pairs)} pairs, its nnz "
+                         f"counts {int(pair_off[-1])}")
+    return words
 
-    Out-of-range k is dropped (the reference skips it, codec.rs:661).
-    Duplicate positions, which only malformed streams hold, are resolved
-    last-wins as the reference's sequential scatter does (codec.rs:660-663):
-    the device scatter must see unique positions.
-    """
-    C = fs.channels
-    nnz = fs.nnz[start : start + count].reshape(-1)
-    P = int(nnz.sum())
-    pairs = fs.pairs[pair_start : pair_start + P]
-    k = pairs["k"].astype(np.int64)
-    pos = np.repeat(np.arange(count * C, dtype=np.int64), nnz) * n + k
-    vals = pairs["q"]
-    in_range = k < n
-    if not in_range.all():
-        pos, vals = pos[in_range], vals[in_range]
-    if len(pos) > 1 and not (np.diff(pos) > 0).all():
-        # np.unique on the reversed stream keeps each position's LAST pair
-        _, last = np.unique(pos[::-1], return_index=True)
-        keep = np.sort(len(pos) - 1 - last)
-        pos, vals = pos[keep], vals[keep]
-    return pos, vals
+
+def row_offsets(nnz: np.ndarray) -> np.ndarray:
+    """[rows + 1] int64: where each frame·channel row's pairs start among
+    the rows' words, then their total; `nnz` is each row's pair count."""
+    if len(nnz) and nnz.min() < 0:
+        raise ValueError("a FrameSet's nnz holds a negative count")
+    off = np.zeros(len(nnz) + 1, np.int64)
+    np.cumsum(nnz, out=off[1:])
+    return off
 
 
 class _Cancelled(Exception):
@@ -202,8 +201,10 @@ class Decoder:
         `frame_offsets(fs)`; all parts have one channel count, and `last`
         says they end their tracks.  `carries` [B, C, n] holds each part's
         overlap carry.  Returns `decode_stacked`'s (rows, new carries).
-        `clock` takes the host work that builds the inputs as ``pack_ms``,
-        the uploads and launches as ``disp_ms``, and counts the uploads."""
+        `clock` takes the host work that builds the inputs as ``pack_ms``
+        (views and slices of the FrameSets, and the row offsets: no pass
+        over the pairs), the uploads and launches as ``disp_ms``, and counts
+        the uploads and the pairs."""
         cfg = self.config
         n = cfg.n
         dev = self.device
@@ -215,14 +216,12 @@ class Decoder:
         with clock.stage("pack"):
             C = parts[0][0].channels
             frame_size = parts[0][0].frame_size
-            pos_l, val_l, scale_l, idx_l, raw_l = [], [], [], [], []
+            word_l, nnz_l, scale_l, idx_l, raw_l = [], [], [], [], []
             counts = []
             off = 0
             for fs, start, valid, (pair_off, raw_off) in parts:
-                pos, vals = chunk_pairs(fs, start, valid,
-                                        int(pair_off[start]), n)
-                pos_l.append(pos + off * C * n)
-                val_l.append(vals)
+                word_l.append(pair_words(fs, start, valid, pair_off))
+                nnz_l.append(fs.nnz[start : start + valid].reshape(-1))
                 scale_l.append(fs.scales[start : start + valid])
                 raw_idx = np.flatnonzero(fs.raw_mask[start : start + valid])
                 r0 = int(raw_off[start])
@@ -230,9 +229,12 @@ class Decoder:
                 raw_l.append(fs.raw_pcm[r0 : r0 + len(raw_idx)])
                 counts.append(valid)
                 off += valid
+            row_off = row_offsets(
+                np.concatenate(nnz_l) if len(nnz_l) > 1 else nnz_l[0])
+            clock.count("pairs_n", int(row_off[-1]))
 
         with clock.stage("disp"):
-            q = dense_q(up(pos_l), up(val_l), off, C, n)
+            q = scatter_pairs(up(word_l), up([row_off]), off * C, n)
             rows = up(raw_l)
             if cfg.reference_compat:
                 # channel-major data read back interleaved (Q13)
@@ -240,8 +242,8 @@ class Decoder:
             else:
                 rows = rows.view(-1, C, frame_size)
             return decode_stacked(
-                q, up(scale_l), up(idx_l), rows, carries, counts, last,
-                self.tables, max_q=cfg.max_q,
+                q.view(off, C, n), up(scale_l), up(idx_l), rows, carries,
+                counts, last, self.tables, max_q=cfg.max_q,
                 window_raw=not cfg.reference_compat,  # fix Q4 in clean mode
             )
 
@@ -288,8 +290,10 @@ class Decoder:
         without `stats`:
 
         * ``pack_ms`` (``glc.decode.pack``) — host ms building a chunk's
-          inputs: `chunk_pairs`, the scale and raw-row slices and their
-          lists (the counterpart of the JAX package's ``_packed_slices``);
+          inputs: views of its pair words, the scale and raw-row slices,
+          the rows' pair offsets (a sum over its frame·channel rows) and
+          their lists (the counterpart of the JAX package's
+          ``_packed_slices``);
         * ``disp_ms`` (``glc.decode.disp``) — host ms issuing the uploads
           (the pinned staging included), the launches and the non-blocking
           download;
@@ -297,16 +301,18 @@ class Decoder:
           download, and its trim;
         * ``up_n`` — host→device copies: 5 a chunk, where the JAX package
           uploads one packed words array a chunk; the port sends the pair
-          positions, the pair values, the raw rows, the scales and the raw
-          frames' indices apart, each a pinned copy that does not block;
+          words, the rows' pair offsets, the raw rows, the scales and the
+          raw frames' indices apart, each a pinned copy that does not block;
         * ``down_n`` — device→host copies: 1 a chunk (the JAX package's
-          ≤1024-row pieces are not ported).
+          ≤1024-row pieces are not ported);
+        * ``pairs_n`` (`PAIR_KEYS`, the port's own) — the pairs handed to
+          the card as words, out-of-range and duplicate pairs included.
 
         The counts are of calls, whatever the device, so a CPU run gives
         the card's.  The consumer's time between two chunks lands in no
         key.  Output is identical with or without the hook.
         """
-        clock = StageClock(stats, STATS_KEYS, "decode")
+        clock = StageClock(stats, STATS_KEYS + PAIR_KEYS, "decode")
         for _pos, flat in self._pipelined_i16_chunks(
             [(0, encoded)], clock, chunk_frames=chunk_frames
         ):
@@ -421,7 +427,7 @@ class Decoder:
         records: a group's input build is ``pack_ms``, its uploads, its
         launch and its download that does not block ``disp_ms``, and the
         wait on its download with each track's trim and copy ``wait_ms``.
-        ``up_n`` and ``down_n`` count a group's transfers as a chunk's.
+        ``up_n``, ``down_n`` and ``pairs_n`` count a group's as a chunk's.
         Three more counts say how the tracks batch (`GROUP_KEYS`):
 
         * ``group_n`` — single-chunk groups, one pass and one
@@ -435,7 +441,8 @@ class Decoder:
         """
         cfg = self.config
         n = cfg.n
-        clock = StageClock(stats, STATS_KEYS + GROUP_KEYS, "decode")
+        clock = StageClock(stats, STATS_KEYS + PAIR_KEYS + GROUP_KEYS,
+                           "decode")
         results: list = [None] * len(encoded_list)
         groups: dict = {}
         multis: list = []

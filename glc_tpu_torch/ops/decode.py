@@ -26,17 +26,6 @@ import torch
 from .kernels import imdct_window
 
 
-def dense_q(pos: torch.Tensor, vals: torch.Tensor, frames: int,
-            channels: int, n: int) -> torch.Tensor:
-    """Scatter pairs into dense q [frames, C, n] int16.  `pos` holds unique
-    flat indices (frame·C + channel)·n + k — the host resolves duplicates
-    last-wins and drops out-of-range k first, because a scatter with
-    duplicate indices on CUDA has no defined order."""
-    q = torch.zeros(frames * channels * n, dtype=torch.int16, device=pos.device)
-    q[pos] = vals
-    return q.view(frames, channels, n)
-
-
 def blocks_from_frames(
     q: torch.Tensor,         # [K, C, n] int16
     scales: torch.Tensor,    # [K, C] f32

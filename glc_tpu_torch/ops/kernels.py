@@ -14,6 +14,11 @@ build.
   count of its segment or shard; these kernels compute each row alike at
   any row count, so the encode's bytes do not depend on how the frames are
   cut, as the JAX package's do not.
+* `scatter_pairs` is the decode's dense q from the container's pair words
+  (``csrc/scatter_pairs.cu``), for every decode surface and the sharded
+  album decode: it replaces no TPU kernel, but a host numpy pass over every
+  pair of a chunk (the positions, a range check, last-wins) and the zero
+  fill and scatter of its unique positions on the device.
 
 Every kernel takes any n (the hop size) from 1 to `MAX_N`: the codec's
 default 1024, a 48 kHz library's 20 ms hop 960, 44.1 kHz's 10 ms 441 and
@@ -82,7 +87,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
-KERNELS = ("imdct_window", "mdct_rows", "band_energy")
+KERNELS = ("imdct_window", "mdct_rows", "band_energy", "scatter_pairs")
 MAX_N = 8192  # the largest n (hop size) each kernel takes (csrc/*.cu)
 # The largest n at which imdct_window and mdct_rows take their f64 path
 # (csrc/f64_rows.cuh) instead of the 3xTF32 tile product: the largest n at
@@ -209,6 +214,10 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr,          # coeffs, plan, out
             i32, i32, i32,          # M, n, bands
             i32, i32, ptr,          # items, plan length, stream
+        ]
+        lib.glc_scatter_pairs.argtypes = [
+            ptr, ptr, ptr,          # words, row_off, out
+            i32, i32, ptr,          # rows, n, stream
         ]
         for name in KERNELS:
             getattr(lib, f"glc_{name}").restype = i32
@@ -894,3 +903,71 @@ def band_energy(coeffs: torch.Tensor, band_mask: torch.Tensor) -> torch.Tensor:
 
 
 band_energy.launches = 0
+
+
+def scatter_pairs_reference(words: torch.Tensor, row_off: torch.Tensor,
+                            rows: int, n: int) -> torch.Tensor:
+    """Plain version: each position's winner is the largest index of the
+    in-range pairs that hold it (``scatter_reduce`` "amax", the same
+    whatever order it runs in), and q is its winner's, else 0."""
+    dev = words.device
+    out = torch.zeros(rows * n, dtype=torch.int16, device=dev)
+    if words.numel() == 0:
+        return out.view(rows, n)
+    k = words & 0xFFFF
+    row = torch.repeat_interleave(
+        torch.arange(rows, device=dev), row_off[1:] - row_off[:-1])
+    keep = k < n
+    pos = row[keep] * n + k[keep]
+    index = torch.arange(words.numel(), device=dev)[keep]
+    winner = torch.full((rows * n,), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, pos, index, "amax")
+    held = winner >= 0
+    out[held] = (words[winner[held]] >> 16).to(torch.int16)
+    return out.view(rows, n)
+
+
+def scatter_pairs(words: torch.Tensor, row_off: torch.Tensor, rows: int,
+                  n: int) -> torch.Tensor:
+    """Dense q [rows, n] int16 of pair words [P] int32 (the container's
+    PAIR_DTYPE read as little-endian int32: k in the low 16 bits, q in the
+    high 16) whose row r holds words[row_off[r] : row_off[r + 1]]
+    (row_off [rows + 1] int64, from 0 to P, non-decreasing).
+
+    A pair with k >= n is dropped (codec.rs:661); among the rest, the last
+    pair of a position wins (codec.rs:660-663); a position no pair holds is
+    0.  The inputs' types and shapes are checked on either device; then CPU
+    tensors take `scatter_pairs_reference`, and CUDA ones launch the kernel
+    on the current stream or raise (n from 1 to `MAX_N`).
+    """
+    dev = words.device
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise TypeError(f"words must be int32 [P], got {words.dtype}"
+                        f"{tuple(words.shape)}")
+    if row_off.device != dev or row_off.dtype != torch.int64 or \
+            tuple(row_off.shape) != (rows + 1,):
+        raise ValueError(f"row_off must be int64 [{rows + 1}] on {dev}, got "
+                         f"{row_off.dtype}{tuple(row_off.shape)} on "
+                         f"{row_off.device}")
+    if dev.type == "cpu":
+        return scatter_pairs_reference(words, row_off, rows, n)
+    if dev.type != "cuda":
+        raise ValueError(f"scatter_pairs runs on cpu or cuda, not {dev}")
+    _check_n("scatter_pairs", n)
+    if words.numel() >= 2**31:
+        raise ValueError(f"scatter_pairs takes fewer than 2**31 pairs, got "
+                         f"{words.numel()}")
+    words, row_off = words.contiguous(), row_off.contiguous()
+    out = torch.empty((rows, n), dtype=torch.int16, device=dev)
+    if rows == 0:
+        return out
+    rc = load_library().glc_scatter_pairs(
+        words.data_ptr(), row_off.data_ptr(), out.data_ptr(), rows, n,
+        _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"scatter_pairs launch failed: CUDA error {rc}")
+    scatter_pairs.launches += 1
+    return out
+
+
+scatter_pairs.launches = 0

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..codec.decoder import chunk_pairs, frame_offsets, gapless_trim
+from ..codec.decoder import (
+    frame_offsets, gapless_trim, pair_words, row_offsets,
+)
 from ..codec.device import upload, upload_concat
 from ..codec.encoder import frame_plan, frame_signal, zero_extend
 from ..codec.tables import get_codec_tables, pow2_bucket
@@ -35,7 +37,7 @@ from ..container.schema import (
     FrameSet,
     GaplessInfo,
 )
-from ..ops.decode import dense_q
+from ..ops.kernels import scatter_pairs
 from .sharded import (
     decode_local,
     encode_local,
@@ -153,10 +155,11 @@ def decode_album_sharded(
     src/codec.rs:744-768).
 
     The frame axis carries the 1-hop overlap-add halo; tracks are
-    independent rows of the 'data' axis.  Each rank scatters its block's
-    pairs as the serial decoder does (`chunk_pairs`: out-of-range k
-    dropped, codec.rs:661; duplicates last-wins, codec.rs:660-663) and
-    decodes it with one `imdct_window` launch.
+    independent rows of the 'data' axis.  Each rank uploads its block's
+    pair words and expands them on the device as the serial decoder does
+    (`ops.kernels.scatter_pairs`: out-of-range k dropped, codec.rs:661;
+    duplicates last-wins, codec.rs:660-663) and decodes the block with one
+    `imdct_window` launch.
     """
     cfg = config or DEFAULT_CONFIG
     n = cfg.n
@@ -177,10 +180,10 @@ def decode_album_sharded(
     Bl, Kl = Bp // shard.data, K // shard.frames
     b0, k0 = shard.d * Bl, shard.f * Kl
 
-    # this block's pairs, scales and raw rows; frames are numbered
-    # bl·Kl + (k − k0) within the block
-    pos_l = [np.empty(0, np.int64)]
-    val_l = [np.empty(0, np.int16)]
+    # this block's pair words, pair counts, scales and raw rows; frames are
+    # numbered bl·Kl + (k − k0) within the block, padded ones without pairs
+    word_l = [np.empty(0, np.int32)]
+    nnz = np.zeros((Bl, Kl, C), np.int64)
     idx_l = [np.empty(0, np.int64)]
     raw_l = [np.empty((0, C * frame_size), np.int16)]
     scales = np.zeros((Bl, Kl, C), np.float32)
@@ -191,17 +194,17 @@ def decode_album_sharded(
             continue
         base = (b - b0) * Kl
         pair_off, raw_off = frame_offsets(fs)
-        pos, vals = chunk_pairs(fs, k0, m, int(pair_off[k0]), n)
-        pos_l.append(pos + base * C * n)
-        val_l.append(vals)
+        word_l.append(pair_words(fs, k0, m, pair_off))
+        nnz[b - b0, :m] = fs.nnz[k0 : k0 + m]
         scales[b - b0, :m] = fs.scales[k0 : k0 + m]
         raw_idx = np.flatnonzero(fs.raw_mask[k0 : k0 + m])
         r0 = int(raw_off[k0])
         idx_l.append(raw_idx + base)
         raw_l.append(fs.raw_pcm[r0 : r0 + len(raw_idx)])
 
-    q = dense_q(upload_concat(pos_l, dev), upload_concat(val_l, dev),
-                Bl * Kl, C, n).view(Bl, Kl, C, n)
+    q = scatter_pairs(upload_concat(word_l, dev),
+                      upload(row_offsets(nnz.reshape(-1)), dev),
+                      Bl * Kl * C, n).view(Bl, Kl, C, n)
     rows = upload_concat(raw_l, dev)
     if cfg.reference_compat:
         # interleaved read-back of channel-major data (Q13)

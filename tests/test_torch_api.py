@@ -12,7 +12,8 @@ Bounds, each with its reason:
   from the geometry.  The encode uploads the signal once and downloads 2
   arrays a segment, 3 for a segment with raw-PCM frames.  The decode
   uploads 5 arrays a chunk, where the JAX package uploads one packed
-  array, and downloads 1 a chunk.
+  array, and downloads 1 a chunk; it hands the card every pair of the
+  containers once (``pairs_n``).
 - `encode_chunk_device` against the JAX package's: q within the pair
   contract (glc_tpu_torch/parity.py), scales within rtol 1e-6, raw_pcm and
   use_raw equal.
@@ -63,11 +64,13 @@ N, FRAME = 1024, 2048
 # the JAX package's keys and the port's stages around them (Encoder.encode)
 ENCODE_KEYS = {"disp_ms", "wait_ms", "up_n", "down_n", "wall_ms", "prep_ms",
                "unpack_ms", "assemble_ms"}
-DECODE_KEYS = {"pack_ms", "disp_ms", "wait_ms", "up_n", "down_n"}
+# the JAX package's keys, and the port's count of the pairs handed to the
+# card as words (PAIR_KEYS)
+DECODE_KEYS = {"pack_ms", "disp_ms", "wait_ms", "up_n", "down_n", "pairs_n"}
 # the counts decode_many adds for its single-chunk groups
 GROUP_KEYS = {"group_n", "group_tracks_n", "group_rows_n"}
-# The decode's uploads a chunk: pair positions, pair values, raw rows,
-# scales, raw frames' indices (Decoder._decode_parts)
+# The decode's uploads a chunk: pair words, the rows' pair offsets, raw
+# rows, scales, raw frames' indices (Decoder._decode_parts)
 UPLOADS_PER_CHUNK = 5
 
 
@@ -219,6 +222,7 @@ def test_decode_i16_stats_hook_accumulates_and_is_inert(max_chunk):
     assert chunks == (1 if max_chunk is None else 2)
     assert stats["up_n"] == UPLOADS_PER_CHUNK * chunks
     assert stats["down_n"] == chunks
+    assert stats["pairs_n"] == len(ea.frame_set.pairs) > 0
 
 
 def test_decode_many_stats_hook_counts_the_multi_chunk_tracks():
@@ -246,6 +250,7 @@ def test_decode_many_stats_hook_counts_the_multi_chunk_tracks():
     (single,) = [ea for ea in eas if 0 < ea.frame_set.num_frames <= 32]
     assert stats["up_n"] == UPLOADS_PER_CHUNK * (multi_chunks + 1)
     assert stats["down_n"] == multi_chunks + 1
+    assert stats["pairs_n"] == sum(len(ea.frame_set.pairs) for ea in eas)
     assert (stats["group_n"], stats["group_tracks_n"],
             stats["group_rows_n"]) == (1, 1, single.frame_set.num_frames)
     for ea, out in zip(eas, got):
@@ -285,6 +290,7 @@ def test_decode_i16_stream_leaves_consumer_time_out(monkeypatch):
     for a, b in zip(parts, plain):
         np.testing.assert_array_equal(a, b)
     assert stats["up_n"] == UPLOADS_PER_CHUNK * 11 and stats["down_n"] == 11
+    assert stats["pairs_n"] == len(ea.frame_set.pairs)
     assert stats["wait_ms"] < step_ms
     assert stats["pack_ms"] + stats["disp_ms"] + stats["wait_ms"] < step_ms
 
@@ -453,6 +459,7 @@ def test_cuda_stats_hooks_are_inert(cuda_device):
     chunks = chunks_of(ea, 32)
     assert set(st) == DECODE_KEYS
     assert st["up_n"] == UPLOADS_PER_CHUNK * chunks and st["down_n"] == chunks
+    assert st["pairs_n"] == len(ea.frame_set.pairs)
     eas = mixed_playlist(Encoder(RATE, device=cuda_device))
     st = {}
     for a, b in zip(dec.decode_many(eas, stats=st), dec.decode_many(eas),
@@ -462,6 +469,7 @@ def test_cuda_stats_hooks_are_inert(cuda_device):
                        if x.frame_set.num_frames > 32)
     assert st["down_n"] == multi_chunks + st["group_n"]
     assert st["group_n"] == 1
+    assert st["pairs_n"] == sum(len(x.frame_set.pairs) for x in eas)
 
 
 @pytest.mark.cuda

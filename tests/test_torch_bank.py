@@ -45,7 +45,7 @@ from torch.profiler import profile
 import glc_tpu_torch as glc
 from glc_tpu_torch import profiling
 from glc_tpu_torch.codec import device as device_mod
-from glc_tpu_torch.codec.decoder import GROUP_KEYS, STATS_KEYS
+from glc_tpu_torch.codec.decoder import GROUP_KEYS, PAIR_KEYS, STATS_KEYS
 from glc_tpu_torch.codec.tables import chunk_size_for
 from glcbench import compare_decode, material, reference, reference_decode
 
@@ -157,7 +157,7 @@ def expected_counts(datas) -> dict:
     """The hook's counts worked out from the clips' frame counts and
     rungs: a group a (channels, rung) of single-chunk clips, a pass a group
     and a chunk of the multi-chunk clips, 5 uploads and 1 download a
-    pass."""
+    pass; and every pair of the containers handed to the card once."""
     F = [frames(d) for d in datas]
     single = [f for f in F if f <= chunk_size_for(f, CHUNK)]
     groups = len({chunk_size_for(f, CHUNK) for f in single})
@@ -165,7 +165,9 @@ def expected_counts(datas) -> dict:
                  if f > chunk_size_for(f, CHUNK))
     return {"up_n": UPLOADS_PER_PASS * (groups + chunks),
             "down_n": groups + chunks, "group_n": groups,
-            "group_tracks_n": len(single), "group_rows_n": sum(single)}
+            "group_tracks_n": len(single), "group_rows_n": sum(single),
+            "pairs_n": sum(len(glc.deserialize_encoded(d).frame_set.pairs)
+                           for d in datas)}
 
 
 def test_the_hook_counts_the_groups_and_changes_no_byte(bank):
@@ -177,7 +179,7 @@ def test_the_hook_counts_the_groups_and_changes_no_byte(bank):
     got = dec.decode_many(eas, stats=stats)
     for a, b in zip(got, plain, strict=True):
         assert a.tobytes() == b.tobytes()
-    assert set(stats) == set(STATS_KEYS + GROUP_KEYS)
+    assert set(stats) == set(STATS_KEYS + PAIR_KEYS + GROUP_KEYS)
     want = expected_counts(datas)
     assert {k: stats[k] for k in want} == want
     assert want["group_n"] >= 5 and want["down_n"] > want["group_n"]
